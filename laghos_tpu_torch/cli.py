@@ -3,9 +3,10 @@
 Flag names follow laghos.cpp:181-278 and `laghos_tpu.cli`, e.g.:
     python -m laghos_tpu_torch -p 1 -dim 3 -rs 4 -s 7 -cgt 1e-11 -ms 20 -f
 The flags of the ported slice (conforming partial assembly on quad/hex
-meshes) run; every other flag of `laghos_tpu.cli` is accepted by the parser
-and then refused with NotImplementedError naming the ROADMAP item that
-ports it.
+meshes, the whole-lattice operators on Cartesian meshes, `--precond
+jacobi|auto|kron`) run; every other flag of `laghos_tpu.cli` is accepted
+by the parser and then refused with NotImplementedError naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ _NOT_PORTED = [
     (("--device-loop",), "device_loop", False, "A8"),
     (("--mxu",), "mxu", True, "'Not to port' (a TPU MXU knob)"),
     (("--ozaki",), "ozaki", False, "A10"),
-    (("--precond",), "precond", True, "A8"),
     (("--checkpoint",), "checkpoint", True, "A7"),
     (("--restore",), "restore", True, "A7"),
     (("--debug-nans",), "debug_nans", False, "A7"),
@@ -104,6 +104,13 @@ def build_parser():
     p.add_argument("-chk", "--checks", action="store_true", dest="check")
     p.add_argument("-f", "--fom", action="store_true", dest="fom")
     p.add_argument("--dtype", default="f64", choices=["f64", "f32"])
+    p.add_argument("--precond", default="jacobi",
+                   choices=["jacobi", "auto", "kron", "schwarz"],
+                   help="velocity CG preconditioner: jacobi (reference "
+                        "parity, the default), kron (per-axis Kronecker "
+                        "inverse on Cartesian meshes), auto (kron where "
+                        "available, else jacobi); schwarz is not ported "
+                        "yet (ROADMAP A8)")
     for flags, dest, takes_value, _ in _NOT_PORTED:
         if takes_value:
             p.add_argument(*flags, dest=dest, default=None,
@@ -152,7 +159,7 @@ def main(argv=None) -> CliRun:
         problem=args.problem, order_v=args.order_v, order_e=args.order_e,
         order_q=args.order_q, cfl=args.cfl, cg_tol=args.cg_tol,
         cg_max_iter=args.cg_max_iter, blast_energy=args.blast_energy,
-        ode_solver=args.ode_solver)
+        ode_solver=args.ode_solver, precond=args.precond)
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     h = Hydro(m, opt, dtype=dtype, device=device)
     setup_seconds = time.perf_counter() - t_setup

@@ -1,33 +1,47 @@
 // Fused pointwise quadrature-point physics for Hopper (sm_90a).
 //
-// Replaces the TPU kernels
-//   laghos_tpu/ops/pallas_qphys.py::physics_3d_pallas9 (f32 build), and
-//   laghos_tpu/ops/pallas_df64.py::physics_3d_pallas_df64 (f64 build; the
-//   TPU has no FP64 ALU and ran the chain in two-f32 double-float, this
-//   card runs it in native FP64).
-// Both compute laghos_tpu/ops/qphys.py::physics_3d + _finish, the
+// One kernel template, three memory layouts (the `Lay` policies below),
+// each in an f64 and an f32 instance.  It replaces the TPU kernels
+//   laghos_tpu/ops/pallas_qphys.py::physics_3d_pallas9 (element layout,
+//     f32) and laghos_tpu/ops/pallas_df64.py::physics_3d_pallas_df64
+//     (element layout, f64: the TPU has no FP64 ALU and ran the chain in
+//     two-f32 double-float, this card runs it in native FP64);
+//   laghos_tpu/ops/pallas_qphys.py::physics_3d_pallas_flat (q-lattice
+//     layout, the whole-lattice q-update's kernel);
+//   laghos_tpu/ops/pallas_qphys.py::physics_3d_pallas (packed layout).
+// All compute laghos_tpu/ops/qphys.py::physics_3d + _finish, the
 // reference's QUpdateBody (laghos_solver.cpp:1042-1168): det and adjugate
 // inverse of J, ideal-gas EOS, the physical velocity gradient, the
 // smallest eigenpair of its symmetric part, h = h0 |J J0^-1 e| / |e|, the
 // smooth-step artificial viscosity (optionally scaled by the vorticity
 // coefficient), the min singular value of J from eig(J^T J), the CFL dt
 // with dt = 0 for inverted or non-finite points, and the stress
-// (sigma J^-T) w detJ.  The plain PyTorch twin is
-// laghos_tpu_torch/ops/qphys.py::physics_3d_plain.
+// (sigma J^-T) w detJ; optionally the viscosity coefficient.  The plain
+// PyTorch twins are laghos_tpu_torch/ops/qphys.py::physics_3d_plain,
+// physics_3d_lattice_plain and physics_3d_packed_plain.
 //
-// Layout: structure of arrays.  J, dV, J0inv and sJit are (9, N) with
-// component k = 3a + b of the 3x3 matrix [a][b]; e, rw, dtq are (N,);
-// gamma is (NE,) indexed by p / NQ, winv (NQ,) by p % NQ.  One thread
-// handles one point in a grid-stride loop; the ragged tail needs no padding.
+// Layouts (component k = 3a + b of the 3x3 matrix [a][b]; e, rw, dtq and
+// visc are (N,) over the N points):
+//  * element: J, dV, J0inv, sJit are (9, N) with N = NE * NQ; gamma (NE,)
+//    indexed by p / NQ, 1/w (NQ,) by p % NQ;
+//  * q-lattice: the same (9, N) stacks over the q-lattice points, gamma and
+//    1/w per point (N,), so no index division;
+//  * packed: (N, 9), the 9 components of a point consecutive (the
+//    (NE, NQ, 3, 3) array); gamma (NE,) by p / NQ and the weights W (NQ,)
+//    by p % NQ, with 1/w formed here.
+// One thread handles one point in a grid-stride loop; the ragged tail needs
+// no padding (the TPU kernels padded to (8, 128) tiles with J = I).
 //
 // What bounds it: at the flagship size (3D Sedov, Q2-Q1, rs4: N = 2,097,152
 // points) one call reads 29 point fields (27 for J, dV, J0inv, plus e and
-// rw) and writes 10, each 2,097,152 x 8 B = 16.8 MB in f64, so about
-// 0.65 GB per call: a floor of about 0.2 ms at the data-sheet 3.35 TB/s.
-// The FP64 work (two 3x3 eigen-solves with f32 Jacobi sweeps, a few sqrt
-// and div chains) is small beside that; coalesced SoA loads and one pass
-// keep every intermediate in registers.  Expect register spills in the
-// f64 instance; the point of this version is to be right, not fast.
+// rw; the lattice layout 31, with gamma and 1/w) and writes 10, each
+// 2,097,152 x 8 B = 16.8 MB in f64, so about 0.65 GB per call: a floor of
+// about 0.2 ms at the data-sheet 3.35 TB/s.  The FP64 work (two 3x3
+// eigen-solves with f32 Jacobi sweeps, a few sqrt and div chains) is small
+// beside that; coalesced SoA loads and one pass keep every intermediate in
+// registers.  The packed layout's loads stride 9 values between threads, so
+// a warp touches 9x the cache lines per load instruction but uses every
+// byte of them.  The point of this version is to be right, not fast.
 //
 // Numerics, chosen to match the reference implementation:
 //  * The Jacobi sweeps of eig3s_hybrid run in float even for double input,
@@ -212,19 +226,90 @@ __device__ __forceinline__ void eig3s_hybrid(T a00, T a11, T a22, T a01, T a02, 
   if (good && is_finite(mu2)) mu = mu2;
 }
 
-template <typename T, bool VISC, bool VORT>
+
+// Memory layouts.  The physics is written once (qphys_kernel); a layout
+// policy says where component k of the 3x3 fields of point p lives and
+// where gamma and 1/w of p come from.
+enum Layout { kElement = 0, kLattice = 1, kPacked = 2 };
+
+template <int LAYOUT>
+struct Lay;
+
+// element SoA: fields (9, N) with N = NE * NQ, component k at k * N + p;
+// gamma per element, 1/w per q-point
+template <>
+struct Lay<kElement> {
+  template <typename T>
+  static __device__ __forceinline__ T get(const T* A, int64_t p, int64_t N, int k) {
+    return A[k * N + p];
+  }
+  template <typename T>
+  static __device__ __forceinline__ void put(T* A, int64_t p, int64_t N, int k, T v) {
+    A[k * N + p] = v;
+  }
+  template <typename T>
+  static __device__ __forceinline__ void point(const T* gamma, const T* winv, int64_t p,
+                                               int64_t NQ, T& gam, T& wi) {
+    gam = gamma[p / NQ];
+    wi = winv[p % NQ];
+  }
+};
+
+// q-lattice SoA: fields (9, N) over the N points of the q-lattice, gamma
+// and 1/w given per point (no index division)
+template <>
+struct Lay<kLattice> {
+  template <typename T>
+  static __device__ __forceinline__ T get(const T* A, int64_t p, int64_t N, int k) {
+    return A[k * N + p];
+  }
+  template <typename T>
+  static __device__ __forceinline__ void put(T* A, int64_t p, int64_t N, int k, T v) {
+    A[k * N + p] = v;
+  }
+  template <typename T>
+  static __device__ __forceinline__ void point(const T* gamma, const T* winv, int64_t p,
+                                               int64_t, T& gam, T& wi) {
+    gam = gamma[p];
+    wi = winv[p];
+  }
+};
+
+// packed AoS: fields (NE, NQ, 3, 3), the 9 components of a point
+// consecutive; gamma per element; `winv` holds the weights W (NQ,) and
+// 1/w is formed here, as physics_3d_pallas forms it
+template <>
+struct Lay<kPacked> {
+  template <typename T>
+  static __device__ __forceinline__ T get(const T* A, int64_t p, int64_t, int k) {
+    return A[9 * p + k];
+  }
+  template <typename T>
+  static __device__ __forceinline__ void put(T* A, int64_t p, int64_t, int k, T v) {
+    A[9 * p + k] = v;
+  }
+  template <typename T>
+  static __device__ __forceinline__ void point(const T* gamma, const T* W, int64_t p,
+                                               int64_t NQ, T& gam, T& wi) {
+    gam = gamma[p / NQ];
+    wi = T(1) / W[p % NQ];
+  }
+};
+
+template <typename T, int LAYOUT, bool VISC, bool VORT>
 __global__ void __launch_bounds__(kBlock)
     qphys_kernel(const T* __restrict__ J, const T* __restrict__ dV,
                  const T* __restrict__ J0i, const T* __restrict__ e_q,
                  const T* __restrict__ rw, const T* __restrict__ gamma,
                  const T* __restrict__ winv, T* __restrict__ sJit, T* __restrict__ dtq,
-                 int64_t N, int64_t NQ, T h0, T h1order, T cfl) {
+                 T* __restrict__ visc_out, int64_t N, int64_t NQ, T h0, T h1order, T cfl) {
+  using L = Lay<LAYOUT>;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < N;
        p += stride) {
-    const T j00 = J[p], j01 = J[N + p], j02 = J[2 * N + p];
-    const T j10 = J[3 * N + p], j11 = J[4 * N + p], j12 = J[5 * N + p];
-    const T j20 = J[6 * N + p], j21 = J[7 * N + p], j22 = J[8 * N + p];
+    const T j00 = L::get(J, p, N, 0), j01 = L::get(J, p, N, 1), j02 = L::get(J, p, N, 2);
+    const T j10 = L::get(J, p, N, 3), j11 = L::get(J, p, N, 4), j12 = L::get(J, p, N, 5);
+    const T j20 = L::get(J, p, N, 6), j21 = L::get(J, p, N, 7), j22 = L::get(J, p, N, 8);
 
     // det + inverse (adjugate)
     const T c00 = j11 * j22 - j12 * j21;
@@ -242,18 +327,19 @@ __global__ void __launch_bounds__(kBlock)
     const T i10 = c10 * idet, i11 = c11 * idet, i12 = c12 * idet;
     const T i20 = c20 * idet, i21 = c21 * idet, i22 = c22 * idet;
 
-    const T wi = winv[p % NQ];
-    const T gam = gamma[p / NQ];
+    T gam, wi;
+    L::point(gamma, winv, p, NQ, gam, wi);
     const T R = rw[p] * wi * idet;
     const T E = nan_max(T(0), e_q[p]);
     const T P = (gam - T(1)) * R * E;
     const T S = Num<T>::sqrt(gam * (gam - T(1)) * E);
 
     T st00, st11, st22, st01, st02, st12, vR;
+    T visc = T(0);
     if (VISC) {
-      const T d00 = dV[p], d01 = dV[N + p], d02 = dV[2 * N + p];
-      const T d10 = dV[3 * N + p], d11 = dV[4 * N + p], d12 = dV[5 * N + p];
-      const T d20 = dV[6 * N + p], d21 = dV[7 * N + p], d22 = dV[8 * N + p];
+      const T d00 = L::get(dV, p, N, 0), d01 = L::get(dV, p, N, 1), d02 = L::get(dV, p, N, 2);
+      const T d10 = L::get(dV, p, N, 3), d11 = L::get(dV, p, N, 4), d12 = L::get(dV, p, N, 5);
+      const T d20 = L::get(dV, p, N, 6), d21 = L::get(dV, p, N, 7), d22 = L::get(dV, p, N, 8);
       // sgrad = dV . Jinv (physical velocity gradient)
       const T g00 = d00 * i00 + d01 * i10 + d02 * i20;
       const T g01 = d00 * i01 + d01 * i11 + d02 * i21;
@@ -283,9 +369,11 @@ __global__ void __launch_bounds__(kBlock)
       eig3s_hybrid<T, true>(s00, s11, s22, s01, s02, s12, mu, ex, ey, ez);
 
       // Jpi = J . Jac0inv; ph = Jpi . e
-      const T o00 = J0i[p], o01 = J0i[N + p], o02 = J0i[2 * N + p];
-      const T o10 = J0i[3 * N + p], o11 = J0i[4 * N + p], o12 = J0i[5 * N + p];
-      const T o20 = J0i[6 * N + p], o21 = J0i[7 * N + p], o22 = J0i[8 * N + p];
+      const T o00 = L::get(J0i, p, N, 0), o01 = L::get(J0i, p, N, 1);
+      const T o02 = L::get(J0i, p, N, 2), o10 = L::get(J0i, p, N, 3);
+      const T o11 = L::get(J0i, p, N, 4), o12 = L::get(J0i, p, N, 5);
+      const T o20 = L::get(J0i, p, N, 6), o21 = L::get(J0i, p, N, 7);
+      const T o22 = L::get(J0i, p, N, 8);
       const T p00 = j00 * o00 + j01 * o10 + j02 * o20;
       const T p01 = j00 * o01 + j01 * o11 + j02 * o21;
       const T p02 = j00 * o02 + j01 * o12 + j02 * o22;
@@ -301,7 +389,7 @@ __global__ void __launch_bounds__(kBlock)
       const T h = (h0 * Num<T>::sqrt(phx * phx + phy * phy + phz * phz)) /
                   Num<T>::sqrt(ex * ex + ey * ey + ez * ez);
 
-      T visc = T(2) * R * h * h * Num<T>::abs(mu);
+      visc = T(2) * R * h * h * Num<T>::abs(mu);
       // smooth step over [-eps, eps] at mu - 2 eps, eps = 1e-12
       T y = (mu - T(2e-12) + T(1e-12)) / T(2e-12);
       y = nan_min(nan_max(y, T(0)), T(1));
@@ -325,6 +413,7 @@ __global__ void __launch_bounds__(kBlock)
       st12 = T(0);
       vR = T(0);
     }
+    if (visc_out != nullptr) visc_out[p] = visc;
 
     // _finish: min singular value of J via eig(J^T J), values only
     const T t00 = j00 * j00 + j10 * j10 + j20 * j20;
@@ -348,72 +437,91 @@ __global__ void __launch_bounds__(kBlock)
 
     // sJit[gd][vd] = sum_k stress[vd][k] Jinv[gd][k] * w * detJ
     const T wd = detJ / wi;
-    sJit[p] = (st00 * i00 + st01 * i01 + st02 * i02) * wd;
-    sJit[N + p] = (st01 * i00 + st11 * i01 + st12 * i02) * wd;
-    sJit[2 * N + p] = (st02 * i00 + st12 * i01 + st22 * i02) * wd;
-    sJit[3 * N + p] = (st00 * i10 + st01 * i11 + st02 * i12) * wd;
-    sJit[4 * N + p] = (st01 * i10 + st11 * i11 + st12 * i12) * wd;
-    sJit[5 * N + p] = (st02 * i10 + st12 * i11 + st22 * i12) * wd;
-    sJit[6 * N + p] = (st00 * i20 + st01 * i21 + st02 * i22) * wd;
-    sJit[7 * N + p] = (st01 * i20 + st11 * i21 + st12 * i22) * wd;
-    sJit[8 * N + p] = (st02 * i20 + st12 * i21 + st22 * i22) * wd;
+    L::put(sJit, p, N, 0, (st00 * i00 + st01 * i01 + st02 * i02) * wd);
+    L::put(sJit, p, N, 1, (st01 * i00 + st11 * i01 + st12 * i02) * wd);
+    L::put(sJit, p, N, 2, (st02 * i00 + st12 * i01 + st22 * i02) * wd);
+    L::put(sJit, p, N, 3, (st00 * i10 + st01 * i11 + st02 * i12) * wd);
+    L::put(sJit, p, N, 4, (st01 * i10 + st11 * i11 + st12 * i12) * wd);
+    L::put(sJit, p, N, 5, (st02 * i10 + st12 * i11 + st22 * i12) * wd);
+    L::put(sJit, p, N, 6, (st00 * i20 + st01 * i21 + st02 * i22) * wd);
+    L::put(sJit, p, N, 7, (st01 * i20 + st11 * i21 + st12 * i22) * wd);
+    L::put(sJit, p, N, 8, (st02 * i20 + st12 * i21 + st22 * i22) * wd);
   }
 }
 
-template <typename T, bool VISC, bool VORT>
-void launch(const void* J, const void* dV, const void* J0i, const void* e_q, const void* rw,
-            const void* gamma, const void* winv, void* sJit, void* dtq, int64_t N, int64_t NQ,
-            double h0, double h1order, double cfl, cudaStream_t stream) {
-  int64_t blocks = (N + kBlock - 1) / kBlock;
+struct Args {
+  const void *J, *dV, *J0i, *e_q, *rw, *gamma, *winv;
+  void *sJit, *dtq, *visc;
+  int64_t N, NQ;
+  double h0, h1order, cfl;
+};
+
+template <typename T, int LAYOUT, bool VISC, bool VORT>
+void launch(const Args& a, cudaStream_t stream) {
+  int64_t blocks = (a.N + kBlock - 1) / kBlock;
   if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride loop covers the rest
   if (blocks < 1) blocks = 1;
-  qphys_kernel<T, VISC, VORT><<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(
-      static_cast<const T*>(J), static_cast<const T*>(dV), static_cast<const T*>(J0i),
-      static_cast<const T*>(e_q), static_cast<const T*>(rw), static_cast<const T*>(gamma),
-      static_cast<const T*>(winv), static_cast<T*>(sJit), static_cast<T*>(dtq), N, NQ,
-      static_cast<T>(h0), static_cast<T>(h1order), static_cast<T>(cfl));
+  qphys_kernel<T, LAYOUT, VISC, VORT><<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(
+      static_cast<const T*>(a.J), static_cast<const T*>(a.dV), static_cast<const T*>(a.J0i),
+      static_cast<const T*>(a.e_q), static_cast<const T*>(a.rw),
+      static_cast<const T*>(a.gamma), static_cast<const T*>(a.winv), static_cast<T*>(a.sJit),
+      static_cast<T*>(a.dtq), static_cast<T*>(a.visc), a.N, a.NQ, static_cast<T>(a.h0),
+      static_cast<T>(a.h1order), static_cast<T>(a.cfl));
+}
+
+template <typename T, int LAYOUT>
+void dispatch_flags(int visc, int vort, const Args& a, cudaStream_t stream) {
+  if (!visc) {
+    launch<T, LAYOUT, false, false>(a, stream);
+  } else if (vort) {
+    launch<T, LAYOUT, true, true>(a, stream);
+  } else {
+    launch<T, LAYOUT, true, false>(a, stream);
+  }
 }
 
 template <typename T>
-void dispatch(int visc, int vort, const void* J, const void* dV, const void* J0i,
-              const void* e_q, const void* rw, const void* gamma, const void* winv, void* sJit,
-              void* dtq, int64_t N, int64_t NQ, double h0, double h1order, double cfl,
-              cudaStream_t stream) {
-  if (!visc) {
-    launch<T, false, false>(J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, N, NQ, h0,
-                            h1order, cfl, stream);
-  } else if (vort) {
-    launch<T, true, true>(J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, N, NQ, h0, h1order,
-                          cfl, stream);
-  } else {
-    launch<T, true, false>(J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, N, NQ, h0,
-                           h1order, cfl, stream);
+bool dispatch(int layout, int visc, int vort, const Args& a, cudaStream_t stream) {
+  switch (layout) {
+    case kElement:
+      dispatch_flags<T, kElement>(visc, vort, a, stream);
+      return true;
+    case kLattice:
+      dispatch_flags<T, kLattice>(visc, vort, a, stream);
+      return true;
+    case kPacked:
+      dispatch_flags<T, kPacked>(visc, vort, a, stream);
+      return true;
+    default:
+      return false;
   }
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  dtype_code: 0 = float, 1 = double.
-// Launches on `stream` (PyTorch's current stream), allocates nothing, does
-// not synchronise, and returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown dtype code).
-extern "C" int qphys_launch(int dtype_code, int device, const void* J, const void* dV,
-                            const void* J0i, const void* e_q, const void* rw,
+// Plain C interface for ctypes.  layout: 0 = element, 1 = q-lattice,
+// 2 = packed (see Layout); dtype_code: 0 = float, 1 = double.  `visc` may
+// be null (no viscosity output); `dV` is not read when visc_flag is 0; NQ
+// is not read by the lattice layout.  Launches on `stream` (PyTorch's
+// current stream), allocates nothing, does not synchronise, and returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unknown layout or dtype code).
+extern "C" int qphys_launch(int layout, int dtype_code, int device, const void* J,
+                            const void* dV, const void* J0i, const void* e_q, const void* rw,
                             const void* gamma, const void* winv, void* sJit, void* dtq,
-                            int64_t N, int64_t NQ, double h0, double h1order, double cfl,
-                            int visc, int vort, void* stream) {
+                            void* visc, int64_t N, int64_t NQ, double h0, double h1order,
+                            double cfl, int visc_flag, int vort, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, visc, N, NQ, h0, h1order, cfl};
+  bool ok = false;
   if (dtype_code == 1) {
-    dispatch<double>(visc, vort, J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, N, NQ, h0,
-                     h1order, cfl, s);
+    ok = dispatch<double>(layout, visc_flag, vort, a, s);
   } else if (dtype_code == 0) {
-    dispatch<float>(visc, vort, J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, N, NQ, h0,
-                    h1order, cfl, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    ok = dispatch<float>(layout, visc_flag, vort, a, s);
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

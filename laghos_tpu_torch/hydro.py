@@ -9,13 +9,26 @@ solving, per evaluation (laghos_solver.cpp:308-518):
     Me de/dt = + F^T . v (+ src)  (CG on the L2 mass)
 with the force q-data recomputed by the q-update.
 
-Everything static (basis tables, gather/incidence maps, t=0 mass data) is
-built once on the host, in NumPy and CPU torch at the run's precision, then
-copied to the run's device.  The per-step work runs eagerly on that device; assembly goes
-through the incidence gather, so a run is bitwise repeatable on the card.
-This is the path of `laghos_tpu.hydro.Hydro` with
-Options(structured_el=False, lattice_ops=False, precond="jacobi",
-ozaki=False, dense_ops=False, gather_assembly=True, p_assembly=True).
+Everything static (basis tables, gather maps, t=0 mass data, lattice
+tables) is built once on the host, in NumPy and CPU torch at the run's
+precision, then copied to the run's device.  The per-step work runs eagerly
+on that device.  Two operator paths, as in `laghos_tpu.hydro.Hydro` with
+ozaki=False, dense_ops=False, p_assembly=True:
+
+* the whole-lattice path (the default, `structured_el` and `lattice_ops`)
+  on raster Cartesian meshes: elements sorted to raster order, dofs
+  renumbered to the lattice; the q-update, F.1, F^T.v and the H1 mass
+  apply run as banded contractions (ops/lattice.py) and the q-point
+  physics as the lattice-layout CUDA kernel; `precond` "auto"/"kron"
+  selects the Kronecker-exact mass inverse;
+* the gather path on any other mesh (or with structured_el=False,
+  lattice_ops=False): gather, sum-factorized contractions, assembly
+  through the incidence gather (or the parity transforms of
+  ops/structured.py when only `structured_el` holds) and the
+  element-layout kernel.
+
+Neither path assembles with atomics, so a run is bitwise repeatable on
+the card.
 """
 
 from __future__ import annotations
@@ -31,9 +44,11 @@ from .fem import quadrature as fq
 from .fem.mesh import Mesh
 from .fem.space import build_h1_space
 from .ops import force as fop
+from .ops import lattice as lop
 from .ops import mass as mop
 from .ops import qupdate as qop
 from .ops import smallmat
+from .ops import structured
 from .ops import tensor as top
 from .solvers.cg import cg
 from .timing import block
@@ -53,6 +68,17 @@ class Options:
     cg_max_iter: int = 300    # -cgm
     blast_energy: float = 1.0  # -E0
     ode_solver: int = 4        # -s
+    structured_el: bool = True  # raster element order, lattice dof
+                                # numbering and parity E<->L transforms on
+                                # Cartesian meshes (ops/structured.py);
+                                # falls back off raster meshes
+    lattice_ops: bool = True    # whole-lattice banded operators on raster
+                                # meshes (ops/lattice.py); needs
+                                # structured_el
+    precond: str = "auto"       # velocity-mass CG preconditioner: "jacobi"
+                                # (reference parity), "kron" (per-axis
+                                # Kronecker inverse on the lattice), "auto"
+                                # (kron where available, else jacobi)
 
 
 # Sedov blast point and the distance within which a mesh vertex must lie
@@ -94,6 +120,13 @@ class Hydro:
             raise NotImplementedError("1D is not ported yet (ROADMAP A6)")
         if opt.ode_solver not in (1, 2, 3, 4, 6, 7):
             raise ValueError(f"unknown ode solver {opt.ode_solver}")
+        if opt.precond == "schwarz":
+            raise NotImplementedError(
+                "precond 'schwarz' is not ported yet (ROADMAP A8)")
+        if opt.precond not in ("jacobi", "auto", "kron"):
+            raise ValueError(f"unknown precond {opt.precond!r}")
+        if opt.structured_el:
+            mesh = structured.reorder_mesh_elements_to_raster(mesh) or mesh
         self.mesh = mesh
         self.opt = opt
         self.dtype = dtype
@@ -126,13 +159,24 @@ class Hydro:
                             for k, v in host.items()}
         self.tables = {k: self._dev(v) for k, v in self._tables_cpu.items()}
         self.tables["Winv"] = 1.0 / self.tables["W"]
+        self._sm = (structured.detect_structure(mesh, self.h1.gather,
+                                                opt.order_v)
+                    if opt.structured_el else None)
+        if self._sm is not None:
+            # relabel dofs to the raster lattice: the struct transforms'
+            # permutation becomes the identity and the L-vector is the
+            # dense dof lattice
+            self._sm = structured.renumber_space_to_raster(self.h1,
+                                                           self._sm)
         self.gather = torch.as_tensor(self.h1.gather, dtype=torch.long,
                                       device=self.device)
         self.ndof = self.h1.ndof
-        inc, msk = mop.build_incidence(self.h1.gather, self.ndof)
-        self._inc = torch.as_tensor(inc, dtype=torch.long,
-                                    device=self.device)
-        self._incmask = self._dev(torch.tensor(msk, dtype=dtype))
+        self._inc = self._incmask = None
+        if self._sm is None:
+            inc, msk = mop.build_incidence(self.h1.gather, self.ndof)
+            self._inc = torch.as_tensor(inc, dtype=torch.long,
+                                        device=self.device)
+            self._incmask = self._dev(torch.tensor(msk, dtype=dtype))
         self.nd1 = opt.order_v + 1
         self.l1d = opt.order_e + 1
         self.ld = self.l1d**d
@@ -204,8 +248,19 @@ class Hydro:
         self.gamma_t = self._dev(torch.tensor(gamma_e, dtype=dtype))
         self.rho0DetJ0w_t = self._dev(torch.tensor(self.rho0DetJ0w,
                                                    dtype=dtype))
+        # whole-lattice operators (raster meshes only)
+        self._lat = self._lat_dims = self._edims = None
+        if opt.lattice_ops:
+            built = lop.build_lattice_ops(
+                self, lambda t: self._dev(t.to(dtype)))
+            if built is not None:
+                self._lat_dims = built.pop("lat_dims")
+                self._lat = built
+                self._edims = self._sm.dims
         Jac0inv_t = torch.tensor(self.Jac0inv, dtype=dtype)
-        if d == 3:
+        if self._lat is not None:
+            self.Jac0inv_t = None      # the lattice holds its own stack
+        elif d == 3:
             # (9, NE, NQ) component stack for the 3D q-update kernel
             self.Jac0inv_t = self._dev(
                 Jac0inv_t.reshape(NE, self.NQ, 9).permute(2, 0, 1)
@@ -317,10 +372,19 @@ class Hydro:
 
     # -------------------------------------------------- operator pieces --
     def _qupdate(self, S):
-        """(sJit, dt_min) at state S: (9, NE, NQ) in 3D, (NE, NQ, 2, 2)
-        in 2D."""
+        """(sJit, dt_min) at state S.  sJit is (9, NE, NQ) in 3D and
+        (NE, NQ, 2, 2) in 2D on the gather path; (9, Qz, Qy, Qx) and
+        (4, Qy, Qx) q-lattice stacks on the lattice path."""
         self.qupdate_calls += 1
         d = self.dim
+        if self._lat is not None:
+            qup = (lop.qupdate3d_lattice if d == 3
+                   else lop.qupdate2d_lattice)
+            return qup(S["x"], S["v"], S["e"], self._lat, self._lat_dims,
+                       self._edims, self.tables,
+                       h1order=float(self.opt.order_v), cfl=self.opt.cfl,
+                       use_viscosity=self.use_visc,
+                       use_vorticity=self.use_vort)
         x_e = self._gather_e(S["x"])
         v_e = self._gather_e(S["v"])
         if d == 3:
@@ -337,15 +401,30 @@ class Hydro:
 
     def _assemble(self, u_e):
         """(..., NE, nd) E-vector assembly to the L-vector."""
+        if self._sm is not None:
+            return structured.e_to_l_struct(u_e, self._sm)
         return mop.e_to_l_gather(u_e, self._inc, self._incmask)
+
+    def _l_to_e(self, u):
+        """(C, ndof) L-vector -> (C, NE, nd) E-vector."""
+        if self._sm is not None:
+            return structured.l_to_e_struct(u, self._sm)
+        return mop.l_to_e(u, self.gather)
 
     def _gather_e(self, u):
         """(C, ndof) L-vector -> (NE, C, nd) E-vector."""
-        return u[:, self.gather].transpose(0, 1)
+        return self._l_to_e(u).transpose(0, 1)
 
     def _force_rhs_raw(self, sJit):
         """F . 1 assembled to the H1 L-vector (the sw_force-timed part of
         SolveVelocity, laghos_solver.cpp:354)."""
+        if self._lat is not None:
+            # reverse banded chains assemble the L-vector directly (the
+            # L2 "ones" evaluate to 1)
+            f1 = (lop.force_one_lattice if self.dim == 3
+                  else lop.force_one_lattice_2d)
+            y = f1(sJit, self._lat["Ts"], self._lat["Tg"])
+            return fop._flush(y.reshape(self.dim, -1), self.ftz_eps2)
         if self.dim == 3:
             Fone = fop.force_mult9(self.one_l2, sJit, self.tables,
                                    ftz_eps2=self.ftz_eps2)
@@ -362,12 +441,19 @@ class Hydro:
         return torch.where(self.ess_mask_t, torch.zeros_like(rhs), rhs)
 
     def _h1_apply_bc(self, u):
-        ue = mop.l_to_e(u, self.gather)                 # (C, NE, nd)
-        ue = mop.mass_apply_e(ue, self.massD, self.tables["H1B"], self.dim)
-        y = self._assemble(ue)
+        if self._lat is not None:
+            y = lop.mass_apply_lattice(u, self._lat["Ts"], self._lat["Dq"],
+                                       self._lat_dims)
+        else:
+            ue = mop.mass_apply_e(self._l_to_e(u), self.massD,
+                                  self.tables["H1B"], self.dim)
+            y = self._assemble(ue)
         return torch.where(self.ess_mask_t, torch.zeros_like(y), y)
 
     def _precond_velocity(self, r):
+        if self._lat is not None and "kron" in self._lat:
+            return lop.kron_precond_apply(r, self._lat["kron"],
+                                          self._lat_dims)
         return r * self.h1_dinv[None, :]
 
     def _cg_velocity(self, rhs):
@@ -399,6 +485,11 @@ class Hydro:
         return out.reshape(self.NE, self.ld)
 
     def _force_transpose(self, sJit, v):
+        if self._lat is not None:
+            fT = (lop.force_transpose_lattice if self.dim == 3
+                  else lop.force_transpose_lattice_2d)
+            return fT(v, sJit, self._lat, self._lat_dims, self._edims,
+                      self.tables)
         v_e = self._gather_e(v)
         if self.dim == 3:
             return fop.force_mult_transpose9(v_e, sJit, self.tables)

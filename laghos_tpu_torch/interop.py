@@ -43,3 +43,19 @@ def hydro_arrays(h) -> dict:
         "tables": {k: _np(h.tables[k]) for k in ("H1B", "H1G", "L2B", "W")},
         "S0": state_to_numpy(h.S0),
     }
+
+
+def lattice_arrays(h) -> dict:
+    """The whole-lattice data of a port `Hydro` as NumPy, under the keys
+    of `laghos_tpu.hydro.Hydro._lat`: the banded tables Ts and Tg (tuples
+    over the lattice axes z, y, x), Dq, rw, gam, winv, J0i9 (3D) or J0i4
+    (2D) stacked on a leading axis, and kron (per-axis factors) where the
+    preconditioner was built; plus "dims" (`_sm.dims`, elements per axis
+    x-first) and "lat_dims" (`_lat_dims`).  None off the lattice path."""
+    if h._lat is None:
+        return None
+    out = {k: tuple(_np(t) for t in v) if isinstance(v, tuple) else _np(v)
+           for k, v in h._lat.items() if k not in ("h0", "kron_relerr")}
+    out["dims"] = tuple(h._sm.dims)
+    out["lat_dims"] = tuple(h._lat_dims)
+    return out

@@ -80,6 +80,10 @@ def build() -> Build:
     return Build(so, out, seconds)
 
 
+# memory layouts of csrc/qphys.cu (its `Layout` enum)
+ELEMENT, LATTICE, PACKED = 0, 1, 2
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """(ctypes library, Build), built and loaded once per process."""
@@ -87,8 +91,8 @@ def library():
     lib = ctypes.CDLL(str(b.path))
     p = ctypes.c_void_p
     lib.qphys_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p, p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p, p, p,
+        p, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_int, ctypes.c_int, p]
     lib.qphys_launch.restype = ctypes.c_int
     lib.qphys_error_string.argtypes = [ctypes.c_int]
@@ -96,24 +100,28 @@ def library():
     return lib, b
 
 
-def launch_qphys(J9, dV9, J0i9, e_q, rw, gamma, winv, sJit, dtq, *, h0,
-                 h1order, cfl, use_viscosity, use_vorticity):
-    """Launch csrc/qphys.cu on PyTorch's current stream.  Arguments are
-    CUDA tensors already checked by the caller (ops/qphys.physics_3d);
-    raises on a refused launch."""
+def launch_qphys(layout, J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, visc,
+                 *, NQ, h0, h1order, cfl, use_viscosity, use_vorticity):
+    """Launch csrc/qphys.cu in `layout` (ELEMENT, LATTICE or PACKED) on
+    PyTorch's current stream.  Arguments are CUDA tensors already checked
+    by the caller (ops/qphys); `dV` may be None when use_viscosity is
+    False, `visc` None when the caller does not want the viscosity
+    coefficient; NQ is the q-points per element (unused by LATTICE).
+    Raises on a refused launch."""
     import torch
 
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     lib, _ = library()
-    N = e_q.numel()
-    NQ = winv.numel()
-    code = {torch.float32: 0, torch.float64: 1}[J9.dtype]
-    stream = torch.cuda.current_stream(J9.device).cuda_stream
+    code = {torch.float32: 0, torch.float64: 1}[J.dtype]
+    stream = torch.cuda.current_stream(J.device).cuda_stream
     err = lib.qphys_launch(
-        code, J9.device.index, J9.data_ptr(), dV9.data_ptr(),
-        J0i9.data_ptr(), e_q.data_ptr(), rw.data_ptr(), gamma.data_ptr(),
-        winv.data_ptr(), sJit.data_ptr(), dtq.data_ptr(), N, NQ,
-        float(h0), float(h1order), float(cfl), int(bool(use_viscosity)),
-        int(bool(use_vorticity)), stream)
+        int(layout), code, J.device.index, J.data_ptr(), ptr(dV),
+        J0i.data_ptr(), e_q.data_ptr(), rw.data_ptr(), gamma.data_ptr(),
+        winv.data_ptr(), sJit.data_ptr(), dtq.data_ptr(), ptr(visc),
+        e_q.numel(), int(NQ), float(h0), float(h1order), float(cfl),
+        int(bool(use_viscosity)), int(bool(use_vorticity)), stream)
     if err != 0:
         msg = lib.qphys_error_string(err).decode()
         raise RuntimeError(f"qphys kernel launch failed: {msg} ({err})")

@@ -1,6 +1,7 @@
 """The PyTorch port's hydro slice end to end on the CPU: stage pieces and
-steps against the JAX package, the reference's --checks goldens, RK2Avg
-energy conservation, repeatability and the command line."""
+steps of the gather path against the JAX package, the reference's --checks
+goldens, RK2Avg energy conservation and repeatability on both operator
+paths (whole-lattice and gather), and the command line."""
 
 import os
 import subprocess
@@ -27,6 +28,11 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = {2: "square01_quad", 3: "cube01_hex"}
+# Options of the two operator paths: the default whole-lattice path, and
+# the gather path pinned explicitly
+PATHS = {"lattice": {},
+         "gather": dict(structured_el=False, lattice_ops=False,
+                        precond="jacobi")}
 
 
 def _rel(a, b):
@@ -45,7 +51,8 @@ def _assert_state_close(St, Sj, tol):
 def test_stage_pieces_and_steps_match_jax(dim):
     """One perturbed state through every stage piece, then 3 steps of the
     memoized `advance`, in both packages."""
-    ht = THydro(tdata.get_mesh(MESH[dim]), TOptions(problem=1, cg_tol=1e-14))
+    ht = THydro(tdata.get_mesh(MESH[dim]),
+                TOptions(problem=1, cg_tol=1e-14, **PATHS["gather"]))
     hj = JHydro(jdata.get_mesh(MESH[dim]),
                 JOptions(problem=1, cg_tol=1e-14, structured_el=False,
                          lattice_ops=False, precond="jacobi"))
@@ -89,45 +96,58 @@ def test_stage_pieces_and_steps_match_jax(dim):
         assert float(est_t) == pytest.approx(float(est_j), rel=1e-12)
 
 
-def _checks_run(dim, problem):
+def _checks_run(dim, problem, path):
     m = tmesh.cartesian(dim, (2,) * dim, (1.0,) * dim)
-    h = THydro(m, TOptions(problem=problem, cg_tol=1e-14))
+    h = THydro(m, TOptions(problem=problem, cg_tol=1e-14, **PATHS[path]))
+    assert (h._lat is not None) == (path == "lattice")
     steps = tuple(s for s, _ in CHECKS_TABLE[dim][problem])
     res = driver.run(h, t_final=0.6, vis_steps=10**6, check_steps=steps)
     return h, res
 
 
+@pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("dim", [2, 3])
-def test_sedov_checks_goldens(dim):
+def test_sedov_checks_goldens(dim, path):
     """The reference --checks gate for p1 (laghos.cpp:1446): |e| at
     steps 5 and 15 (2D) / 5 and 20 (3D) to 1e-13."""
-    _, res = _checks_run(dim, 1)
+    _, res = _checks_run(dim, 1, path)
     assert run_checks(1, dim, res.norms, eps=1e-13)
 
 
 _OTHER_ROWS = [(d, p) for d in (2, 3) for p in range(8) if p != 1]
 
 
+@pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("dim,problem", _OTHER_ROWS)
-def test_checks_goldens_other_problems(dim, problem):
-    """The other 14 rows of the --checks table, through the CLI."""
-    run = cli.main(["-d", "cpu", "-p", str(problem), "-dim", str(dim),
-                    "-rs", "0", "-tf", "0.6", "-s", "4", "-cfl", "0.5",
-                    "-cgt", "1e-14", "-chk", "-vs", "1000000"])
-    assert run_checks(problem, dim, run.result.norms, eps=1e-13)
+def test_checks_goldens_other_problems(dim, problem, path):
+    """The other 14 rows of the --checks table: the lattice path through
+    the CLI (its default on these Cartesian meshes, Jacobi PCG), the
+    gather path through the driver."""
+    if path == "gather":
+        res = _checks_run(dim, problem, path)[1]
+    else:
+        run = cli.main(["-d", "cpu", "-p", str(problem), "-dim", str(dim),
+                        "-rs", "0", "-tf", "0.6", "-s", "4", "-cfl", "0.5",
+                        "-cgt", "1e-14", "-chk", "-vs", "1000000"])
+        assert run.hydro._lat is not None
+        res = run.result
+    assert run_checks(problem, dim, res.norms, eps=1e-13)
 
 
-def test_rk2avg_energy_drift():
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_rk2avg_energy_drift(path):
     m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
-    h = THydro(m, TOptions(problem=1, ode_solver=7, cg_tol=1e-14))
+    h = THydro(m, TOptions(problem=1, ode_solver=7, cg_tol=1e-14,
+                           **PATHS[path]))
     res = driver.run(h, t_final=0.6, max_steps=10, vis_steps=10**6)
     assert res.steps >= 10
     drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
     assert drift <= 1e-12
 
 
-def test_bitwise_repeatability():
-    finals = [_checks_run(3, 1)[1].S for _ in range(2)]
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_bitwise_repeatability(path):
+    finals = [_checks_run(3, 1, path)[1].S for _ in range(2)]
     for k in ("x", "v", "e"):
         assert torch.equal(finals[0][k], finals[1][k])
 
@@ -144,7 +164,7 @@ def test_cli_subprocess_smoke():
 
 @pytest.mark.parametrize("argv,item", [
     (["-fa"], "A6"), (["--ozaki"], "A10"), (["-rp", "1"], "A11"),
-    (["--precond", "kron"], "A8"), (["-amr"], "A13"),
+    (["--precond", "schwarz"], "A8"), (["-amr"], "A13"),
     (["--checkpoint", "x.npz"], "A7")])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=item):

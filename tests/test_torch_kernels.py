@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.  This file imports neither JAX nor `laghos_tpu`, so it also runs
+"""The hand-written CUDA kernels (element, q-lattice and packed layouts of
+csrc/qphys.cu, f64 and f32) against their plain PyTorch versions, on the
+card.  This file imports neither JAX nor `laghos_tpu`, so it also runs
 on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -13,6 +14,7 @@ import torch
 
 from laghos_tpu_torch.fem import mesh as tmesh
 from laghos_tpu_torch.hydro import Hydro, Options
+from laghos_tpu_torch.ops import lattice as tlat
 from laghos_tpu_torch.ops import qphys
 from laghos_tpu_torch.ops import qupdate as tqup
 from laghos_tpu_torch.ops import tensor as ttensor
@@ -25,7 +27,8 @@ def qdata():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
-    h = Hydro(m, Options(problem=1), device="cuda")
+    h = Hydro(m, Options(problem=1, structured_el=False, lattice_ops=False,
+                         precond="jacobi"), device="cuda")
     rng = np.random.default_rng(0)
     S = h.S0
     v = S["v"] + torch.tensor(0.1 * rng.normal(size=tuple(S["v"].shape)),
@@ -78,3 +81,90 @@ def test_qphys_kernel_refuses_bad_inputs(qdata):
                            for i, a in enumerate(inputs)], **kw)
     with pytest.raises(ValueError):
         qphys.physics_3d(inputs[0][:, :, ::2], *inputs[1:], **kw)
+
+
+@pytest.fixture(scope="module")
+def lattice_qdata():
+    """3D q-lattice data on the card: the default (lattice) Hydro of the
+    Sedov mesh refined once, velocity perturbed by a numpy-seeded field,
+    with inverted and NaN points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
+    h = Hydro(m, Options(problem=1), device="cuda")
+    assert h._lat is not None
+    rng = np.random.default_rng(0)
+    S, lat, dims = h.S0, h._lat, h._lat_dims
+    v = S["v"] + torch.tensor(0.1 * rng.normal(size=tuple(S["v"].shape)),
+                              dtype=h.dtype, device=h.device)
+    J9 = torch.stack(tlat.grad9_lattice(S["x"].reshape((3,) + dims),
+                                        lat["Ts"], lat["Tg"]))
+    dV9 = torch.stack(tlat.grad9_lattice(v.reshape((3,) + dims), lat["Ts"],
+                                         lat["Tg"]))
+    e_q = tlat.energy_qlattice(S["e"], h._edims, h.tables, 3) + 0.5
+    J9[:, 1, 2, 3] *= -1.0             # detJ < 0
+    J9[:, 9, 0, 7] *= -1.0
+    J9[4, 6, 13, 1] = float("nan")     # NaN geometry
+    e_q[2, 7, 4] = float("nan")        # NaN energy
+    return h, [J9.contiguous(), dV9.contiguous(), lat["J0i9"],
+               e_q.contiguous(), lat["rw"], lat["gam"], lat["winv"]]
+
+
+def _agree(s_k, d_k, s_p, d_p, tol):
+    assert torch.equal(torch.isnan(s_k), torch.isnan(s_p))
+    assert torch.equal(d_k == 0, d_p == 0)
+    assert int((d_p == 0).sum()) == 4
+    fin = ~torch.isnan(s_p)
+    scale = float(s_p[fin].abs().max())
+    assert float((s_k[fin] - s_p[fin]).abs().max()) <= tol * scale
+    good = d_p > 0
+    dmin = float(d_p[good].min())
+    assert abs(float(d_k[good].min()) - dmin) <= tol * dmin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("visc,vort", [(True, False), (True, True),
+                                       (False, False)])
+def test_qphys_lattice_kernel_matches_plain(lattice_qdata, dtype, tol, visc,
+                                            vort):
+    h, inputs = lattice_qdata
+    args = [a.to(dtype) for a in inputs]
+    kw = dict(h0=h.h0, h1order=2.0, cfl=0.5, use_viscosity=visc,
+              use_vorticity=vort)
+    before = qphys.physics_3d_lattice.launches
+    s_k, d_k = qphys.physics_3d_lattice(*args, **kw)
+    torch.cuda.synchronize()
+    assert qphys.physics_3d_lattice.launches == before + 1
+    s_p, d_p = qphys.physics_3d_lattice_plain(*args, **kw)
+    _agree(s_k, d_k, s_p, d_p, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("visc,vort", [(True, False), (True, True),
+                                       (False, False)])
+def test_qphys_packed_kernel_matches_plain(qdata, dtype, tol, visc, vort):
+    h, inputs = qdata
+    J9, dV9, J0i9, e_q, rw, gamma, winv = [a.to(dtype) for a in inputs]
+    NE, NQ = e_q.shape
+
+    def packed(A9):
+        return A9.permute(1, 2, 0).reshape(NE, NQ, 3, 3).contiguous()
+
+    W = h.tables["W"].to(dtype)
+    kw = dict(h0=h.h0, h1order=2.0, cfl=0.5, use_viscosity=visc,
+              use_vorticity=vort)
+    args = [packed(J9), packed(dV9), packed(J0i9), e_q, rw, gamma, W]
+    before = qphys.physics_3d_packed.launches
+    s_k, d_k, v_k = qphys.physics_3d_packed(*args, **kw)
+    torch.cuda.synchronize()
+    assert qphys.physics_3d_packed.launches == before + 1
+    s_p, d_p, v_p = qphys.physics_3d_packed_plain(*args, **kw)
+    _agree(s_k, d_k, s_p, d_p, tol)
+    assert torch.equal(torch.isnan(v_k), torch.isnan(v_p))
+    fin = ~torch.isnan(v_p)
+    scale = max(float(v_p[fin].abs().max()), 1e-300)
+    assert float((v_k[fin] - v_p[fin]).abs().max()) <= tol * scale

@@ -44,7 +44,9 @@ def _pair(dim, problem=1):
     if key not in _PAIRS:
         mt = tmesh.uniform_refine(tdata.get_mesh(MESH[dim]))
         mj = jmesh.uniform_refine(jdata.get_mesh(MESH[dim]))
-        ht = THydro(mt, TOptions(problem=problem, cg_tol=1e-14))
+        ht = THydro(mt, TOptions(problem=problem, cg_tol=1e-14,
+                                 structured_el=False, lattice_ops=False,
+                                 precond="jacobi"))
         hj = JHydro(mj, JOptions(problem=problem, cg_tol=1e-14,
                                  structured_el=False, lattice_ops=False,
                                  precond="jacobi"))
@@ -293,7 +295,8 @@ def test_mass_apply_and_incidence_match_jax(dim):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_h1_mass_diag_matches_apply(dim):
     mt = tdata.get_mesh(MESH[dim])
-    ht = THydro(mt, TOptions(problem=1))
+    ht = THydro(mt, TOptions(problem=1, structured_el=False,
+                             lattice_ops=False, precond="jacobi"))
     gather = torch.as_tensor(ht.h1.gather, dtype=torch.long)
     I = torch.eye(ht.ndof, dtype=torch.float64)
     M = tmass.h1_mass_apply(I, gather, ht.ndof, ht.massD, ht.tables["H1B"],

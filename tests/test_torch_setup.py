@@ -90,7 +90,9 @@ def _rel(a, b):
 def test_hydro_arrays_match(dim, ok, ot):
     mt = tmesh.uniform_refine(tdata.get_mesh(MESH[dim]))
     mj = jmesh.uniform_refine(jdata.get_mesh(MESH[dim]))
-    ht = THydro(mt, TOptions(problem=1, order_v=ok, order_e=ot))
+    ht = THydro(mt, TOptions(problem=1, order_v=ok, order_e=ot,
+                             structured_el=False, lattice_ops=False,
+                             precond="jacobi"))
     hj = JHydro(mj, JOptions(problem=1, order_v=ok, order_e=ot,
                              structured_el=False, lattice_ops=False,
                              precond="jacobi"))
