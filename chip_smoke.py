@@ -6,25 +6,37 @@ Drives the port's paths (`laghos_tpu_torch`) through the entry points a
 user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
-2. build of the hand-written CUDA kernels (csrc/qphys.cu) from this
-   checkout;
+2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu)
+   from this checkout, one nvcc per source in parallel;
 3. each kernel instance against its plain PyTorch version on the card, f64
    and f32, with inverted and NaN points mixed in, with launch times: the
    element layout on the flagship mesh's gather-path q-data, the q-lattice
-   and packed layouts on its q-lattice (2,097,152 points);
+   and packed layouts on its q-lattice (2,097,152 points); the Ozaki split
+   bit for bit at the six stage operands of an Ozaki mass apply of the
+   flagship state (8 and 6 slices) and on a mixed-magnitude operand with
+   zero, NaN and Inf rows;
 4. the reference's --checks goldens (3D and 2D Sedov) through the port's
-   driver on the card, on the whole-lattice and on the gather path;
+   driver on the card, on the whole-lattice and on the gather path, and 3D
+   Sedov through the Ozaki lattice path (at its gate, 3e-13);
 5. the flagship runs: 3D Sedov, rs4, Q2-Q1, RK2Avg, f64 through the CLI on
    the lattice path (Jacobi, then --precond kron), with FOM, CG
    iterations, energy drift and peak memory; the gather path at the same
    size through `driver.run` for fewer steps, whose |e| must agree with
    the lattice run's; the ns4 shape (Q4-Q3, rs3) on the lattice path;
-   short f32 runs of both paths.  The packed layout is on no
-   time-stepping path (its `launches` is 0 and its entry `on_path` false):
-   its entry point is held, outside the counted runs, against the
-   q-update of the final state of the f64 and the f32 lattice runs;
-6. bitwise repeatability of two runs on the lattice path and two on the
-   gather path.
+   short f32 runs of both paths; then the Ozaki mode (--ozaki) on the
+   same shapes: flagship Jacobi and kron, ns4, and the gather path, each
+   gated on drift and on |e| against the native lattice Jacobi run of this
+   call.  The packed layout is on no time-stepping path (its `launches` is
+   0 and its entry `on_path` false): its entry point is held, outside the
+   counted runs, against the q-update of the final state of the f64 and
+   the f32 lattice runs;
+6. bitwise repeatability of two runs on the lattice path, two on the
+   gather path and two on the Ozaki lattice path.
+
+Each kernel's `bound_ms` is the larger of its bytes (every input read once,
+every output written once) over 3.35 TB/s and its operations over the
+card's peak for their type; `library_ms` is null, as no single PyTorch
+call computes any of these functions.
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -50,6 +62,9 @@ FLAGSHIP_KRON = FLAGSHIP + ["--precond", "kron"]
 # the JAX package's ns4 shape (Q4-Q3 at rs3), a few steps
 NS4 = ["-p", "1", "-dim", "3", "-rs", "3", "-ok", "4", "-ot", "3", "-s", "7",
        "-cgt", "1e-11", "-ms", "4", "-f", "-vs", "5", "-d", "cuda"]
+FLAGSHIP_OZ = FLAGSHIP + ["--ozaki"]
+FLAGSHIP_OZ_KRON = FLAGSHIP_KRON + ["--ozaki"]
+NS4_OZ = NS4 + ["--ozaki"]
 FLAGSHIP_F32 = ["-p", "1", "-dim", "3", "-rs", "4", "-ok", "2", "-ot", "1",
                 "-s", "7", "-cgt", "2e-7", "-ms", "3", "--dtype", "f32",
                 "-vs", "5", "-d", "cuda"]
@@ -58,7 +73,17 @@ FLAGSHIP_F32 = ["-p", "1", "-dim", "3", "-rs", "4", "-ok", "2", "-ot", "1",
 GATHER = dict(structured_el=False, lattice_ops=False, precond="jacobi")
 GATHER_STEPS = 5           # accepted steps of the rs4 gather-path run
 SOURCE = "laghos_tpu_torch/csrc/qphys.cu"
+SPLIT_SOURCE = "laghos_tpu_torch/csrc/split.cu"
+SPLIT_REPLACES = "laghos_tpu/ops/pallas_split.py:129"
 F64, F32 = torch.float64, torch.float32
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 rates outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {F64: 34e12, F32: 67e12}
+# FP operations per q-point of the physics chain, counted from
+# csrc/qphys.cu (det and adjugate, EOS, two 3x3 eigen-solves with their
+# Jacobi sweeps, dt, stress): an estimate, not a measurement
+QPHYS_OPS_PER_POINT = 1000
 # layout -> (wrapper in ops/qphys, {dtype: the TPU kernel it replaces})
 LAYOUTS = {
     "element": ("physics_3d", {F64: "laghos_tpu/ops/pallas_df64.py:132",
@@ -129,12 +154,31 @@ def _wrapper(layout):
 
 
 def reset_counts():
+    from laghos_tpu_torch.ops import omm
+
     for layout in LAYOUTS:
         _wrapper(layout).launches = 0
+    omm.split_dyn.launches = 0
 
 
 def read_counts():
-    return {layout: _wrapper(layout).launches for layout in LAYOUTS}
+    from laghos_tpu_torch.ops import omm
+
+    out = {layout: _wrapper(layout).launches for layout in LAYOUTS}
+    out["split"] = omm.split_dyn.launches
+    return out
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of the byte time at HBM bandwidth
+    and the operation time at the card's peak for `dtype`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # ------------------------------------------------------------ phase 3 --
@@ -295,9 +339,98 @@ def compare(layout, inputs, dtype):
                              "dt = 0")
     ms = time_ms(lambda: wrapper(*args, **kw))
     plain_ms = time_ms(lambda: plain(*args, **kw))
+    b_ms, b_by = bound(_nbytes(args) + _nbytes(out_k),
+                       QPHYS_OPS_PER_POINT * args[3].numel(), dtype)
     log(f"[3 kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(median of 20, N = {args[3].numel()})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"(median of 20, N = {args[3].numel()}); bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def mass_stage_operands(h, u):
+    """The six operands the Ozaki mass apply of `h` splits (over axis 1)
+    when it applies to the (3, ndof) field u: (3, 65, 65, 65) ... (3, 128,
+    128, 128) ... at the flagship size."""
+    from laghos_tpu_torch.ops import omm
+
+    loz = h._lat_oz
+    q = u.reshape((3,) + h._lat_dims)
+    out = []
+    for k in range(3):
+        out.append(q)
+        q = omm.tensordot(q, loz["fwdB"][k], 1)
+    q = q * h._lat["Dq"][None]
+    for k in range(3):
+        out.append(q)
+        q = omm.tensordot(q, loz["bwdB"][k], 1)
+    return out
+
+
+def _split_bitwise(A, S, what):
+    from laghos_tpu_torch.ops import omm
+
+    k = omm.split_dyn(A, S, axis=1)
+    p = omm.split_dyn_plain(A, S, axis=1)
+    torch.cuda.synchronize()
+    same = (torch.equal(k.cat, p.cat)
+            and torch.equal(k.scale.view(torch.int64),
+                            p.scale.view(torch.int64)))
+    if not same:
+        raise AssertionError(f"split kernel and plain twin differ: {what} "
+                             f"S={S}")
+    return k
+
+
+def phase_split(h):
+    """The split kernel against its plain twin, bit for bit, at the six
+    stage operands of an Ozaki mass apply of the flagship state (8 and 6
+    slices) and on a mixed-magnitude operand with zero, NaN and Inf rows;
+    times at 8 slices.  The kernels-line numbers are the sums over the six
+    stages: the splits of one 8-slice mass apply."""
+    from laghos_tpu_torch.ops import omm
+
+    rng = np.random.default_rng(1)
+    ops = mass_stage_operands(h, _perturbed_velocity(h, rng))
+    tot = dict(ms=0.0, plain_ms=0.0)
+    nbytes = nops = 0
+    for i, A in enumerate(ops):
+        for S in (8, 6):
+            d = _split_bitwise(A, S, f"stage {i}")
+        mant, _ = torch.frexp(d.scale)
+        if not bool((mant == 0.5).all()):
+            raise AssertionError("split scales are not powers of two")
+        ms = time_ms(lambda: omm.split_dyn(A, 8, axis=1))
+        plain_ms = time_ms(lambda: omm.split_dyn_plain(A, 8, axis=1))
+        d = omm.split_dyn(A, 8, axis=1)
+        b_ms, b_by = bound(_nbytes((A, d.cat, d.scale)),
+                           (3 * 8 + 2) * A.numel(), F64)
+        log(f"[3 split] stage {i} {tuple(A.shape)} (k = {A.shape[1]}, "
+            f"{d.cat.shape[0]} rows): bitwise equal at S = 8 and 6; S = 8 "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {_nbytes((A, d.cat, d.scale))} B)")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        nbytes += _nbytes((A, d.cat, d.scale))
+        nops += (3 * 8 + 2) * A.numel()
+    A = torch.tensor(rng.standard_normal((3, 17, 33)) * np.exp2(
+        rng.integers(-30, 30, (3, 17, 33))), device=h.device)
+    A[1, :, 5] = 0.0
+    A[2, 4, 7] = float("nan")
+    A[0, 9, 30] = float("inf")
+    for S in (8, 6, 4):
+        d = _split_bitwise(A, S, "mixed operand")
+    nan_rows = int(torch.isnan(d.scale).sum())
+    if nan_rows != 2:
+        raise AssertionError(f"expected 2 NaN-scale rows, got {nan_rows}")
+    log(f"[3 split] mixed-magnitude operand with zero, NaN and Inf rows: "
+        f"bitwise equal at S = 8, 6, 4; NaN-scale rows {nan_rows}")
+    b_ms, b_by = bound(nbytes, nops, F64)
+    log(f"[3 split] one 8-slice mass apply's six splits: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes} B)")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, **tot)
 
 
 def phase_kernel(dev):
@@ -306,8 +439,8 @@ def phase_kernel(dev):
     for dt in (F64, F32):
         out["element", dt] = compare("element", inp, dt)
     del inp
-    h = flagship_hydro(dev)
-    if h._lat is None:
+    h = flagship_hydro(dev, ozaki=True)
+    if h._lat is None or h._lat_oz is None:
         raise AssertionError("the flagship mesh did not build the lattice")
     lat = lattice_inputs(h)
     pk = packed_inputs(h, lat[0])
@@ -316,7 +449,9 @@ def phase_kernel(dev):
     del lat
     for dt in (F64, F32):
         out["packed", dt] = compare("packed", pk, dt)
-    del pk, h
+    del pk
+    out["split"] = phase_split(h)
+    del h
     torch.cuda.empty_cache()
     return out
 
@@ -326,7 +461,8 @@ def phase_goldens(dev):
     from laghos_tpu_torch import driver
     from laghos_tpu_torch.fem import mesh as fmesh
     from laghos_tpu_torch.hydro import Hydro, Options
-    from laghos_tpu_torch.verify import CHECKS_TABLE, run_checks
+    from laghos_tpu_torch.verify import (CHECKS_TABLE, OZAKI_CHECKS_EPS,
+                                         run_checks)
 
     for path, opt, layout in (("lattice", {}, "lattice"),
                               ("gather", GATHER, "element")):
@@ -347,6 +483,20 @@ def phase_goldens(dev):
             log(f"[4 goldens] {path} {dim}D Sedov |e| at steps {steps}: "
                 f"{[res.norms[s] for s in steps]} match CHECKS_TABLE at "
                 f"1e-13 (kernel launches {got}, H1 CG {res.h1_iters})")
+    # the Ozaki lattice path: 3D only, at its own gate
+    steps = tuple(s for s, _ in CHECKS_TABLE[3][1])
+    m = fmesh.cartesian(3, (2,) * 3, (1.0,) * 3)
+    h = Hydro(m, Options(problem=1, cg_tol=1e-14, ozaki=True), device=dev)
+    reset_counts()
+    res = driver.run(h, t_final=0.6, vis_steps=10**6, check_steps=steps)
+    got = read_counts()
+    run_checks(1, 3, res.norms, eps=OZAKI_CHECKS_EPS)
+    if got["lattice"] != h.qupdate_calls or got["split"] == 0:
+        raise AssertionError(f"3D Ozaki goldens: kernel launches {got}")
+    log(f"[4 goldens] ozaki lattice 3D Sedov |e| at steps {steps}: "
+        f"{[res.norms[s] for s in steps]} match CHECKS_TABLE at "
+        f"{OZAKI_CHECKS_EPS:g} (kernel launches {got}, H1 CG "
+        f"{res.h1_iters}, IR {h.ir_stats()})")
 
 
 # ------------------------------------------------------------ phase 5 --
@@ -370,16 +520,33 @@ def drive(argv):
     return run, read_counts(), wall, buf.getvalue()
 
 
-def _only(counts, layout, calls, what):
-    want = {k: (calls if k == layout else 0) for k in counts}
-    if counts != want or calls == 0:
+def _only(counts, layout, calls, what, ozaki=False):
+    """The main-path run `what` launched the `layout` q-point kernel once
+    per q-update and no other layout; the split kernel iff Ozaki."""
+    got = {k: v for k, v in counts.items() if k != "split"}
+    want = {k: (calls if k == layout else 0) for k in got}
+    split_ok = counts["split"] > 0 if ozaki else counts["split"] == 0
+    if got != want or calls == 0 or not split_ok:
         raise AssertionError(f"{what}: kernel launches {counts}, expected "
-                             f"{want}")
+                             f"{want} and split launches "
+                             f"{'> 0' if ozaki else '0'}")
+
+
+def _ir_line(h):
+    """CG-H1 inner sweeps and outers of an Ozaki lattice run."""
+    st = h.ir_stats()
+    return (f"CG-H1 IR: {st['solves']} solves, {st['outers']} outers "
+            f"({st['outers'] / max(st['solves'], 1):.2f} per solve), "
+            f"{st['outer_applies']} Ozaki residual applies, "
+            f"{st['inner_sweeps']} f32 inner sweeps "
+            f"({st['inner_sweeps'] / max(3 * st['solves'], 1):.2f} per "
+            f"component solve)")
 
 
 def flagship_run(argv, tag):
     run, counts, wall, out = drive(argv)
     res, h, fom = run.result, run.hydro, run.fom
+    ozaki = h.oz is not None
     if h._lat is None:
         raise AssertionError(f"{tag}: the CLI did not take the lattice path")
     step_ms = 1e3 * res.timings["total"] / res.steps
@@ -391,7 +558,7 @@ def flagship_run(argv, tag):
             log(f"{p} {line}")
     log(f"{p} NE {h.NE}, NQ {h.NQ}, quadrature points {h.NE * h.NQ}, H1 "
         f"dofs {h.ndof * 3}, L2 dofs {h.NE * h.ld}, lattice "
-        f"{h._lat_dims}, kron {'kron' in h._lat}")
+        f"{h._lat_dims}, kron {'kron' in h._lat}, ozaki {ozaki}")
     log(f"{p} setup {run.setup_seconds:.3f} s, {res.steps} steps, "
         f"step_ms {step_ms:.3f} (timed run, fences per phase), "
         f"wall {wall:.3f} s")
@@ -405,6 +572,8 @@ def flagship_run(argv, tag):
         f"({res.h1_iters / (2 * 3 * res.steps):.2f} per component solve), "
         f"L2 {res.l2_iters} ({res.l2_iters / (2 * res.steps):.2f} per "
         f"solve)")
+    if ozaki:
+        log(f"{p} {_ir_line(h)}; split launches {counts['split']}")
     log(f"{p} final |e| {res.e_norm:.13e}, energy drift {drift:.3e} "
         f"(relative), peak device memory {peak / 2**30:.3f} GiB")
     S = res.S
@@ -414,10 +583,10 @@ def flagship_run(argv, tag):
     if not drift <= 1e-12:
         raise AssertionError(f"{tag}: RK2Avg energy drift {drift:.3e} > "
                              "1e-12")
-    _only(counts, "lattice", h.qupdate_calls, tag)
+    _only(counts, "lattice", h.qupdate_calls, tag, ozaki)
     log(f"{p} lattice kernel launches {counts['lattice']} == q-updates "
         f"{h.qupdate_calls}")
-    return run, counts["lattice"]
+    return run, counts
 
 
 def packed_check(h, S, tag):
@@ -448,12 +617,12 @@ def packed_check(h, S, tag):
                              "lattice q-update")
 
 
-def gather_run(dev, dtype, steps, cg_tol):
+def gather_run(dev, dtype, steps, cg_tol, **opt):
     """The gather path at the flagship size through driver.run."""
     from laghos_tpu_torch import driver
 
     t0 = time.perf_counter()
-    h = flagship_hydro(dev, dtype, cg_tol=cg_tol, **GATHER)
+    h = flagship_hydro(dev, dtype, cg_tol=cg_tol, **GATHER, **opt)
     setup = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -462,32 +631,16 @@ def gather_run(dev, dtype, steps, cg_tol):
                      timing=True)
     torch.cuda.synchronize()
     counts = read_counts()
-    _only(counts, "element", h.qupdate_calls, f"gather {dtype}")
+    what = f"gather {dtype}" + (" ozaki" if opt.get("ozaki") else "")
+    _only(counts, "element", h.qupdate_calls, what, opt.get("ozaki", False))
     if res.steps != steps or not math.isfinite(res.e_norm):
-        raise AssertionError(f"gather {dtype}: {res.steps} steps, |e| "
-                             f"{res.e_norm}")
-    return h, res, setup, counts["element"]
+        raise AssertionError(f"{what}: {res.steps} steps, |e| {res.e_norm}")
+    return h, res, setup, counts
 
 
-def phase_flagship(dev):
-    launches = {}
-    run_j, launches["lattice", F64] = flagship_run(FLAGSHIP, "flagship")
-    res_j = run_j.result
-    packed_check(run_j.hydro, res_j.S, "flagship")
-    del run_j
-    run_k, n = flagship_run(FLAGSHIP_KRON, "kron")
-    res_k = run_k.result
-    del run_k
-    launches["lattice", F64] += n
-    if res_k.steps != res_j.steps:
-        raise AssertionError("kron and Jacobi runs took different steps")
-    rel_k = abs(res_k.e_norm - res_j.e_norm) / res_j.e_norm
-    log(f"[5 kron] |e| after {res_k.steps} steps vs the Jacobi run: rel "
-        f"{rel_k:.3e}; H1 CG iterations {res_k.h1_iters} vs "
-        f"{res_j.h1_iters}")
-
-    h, res, setup, launches["element", F64] = gather_run(
-        dev, F64, GATHER_STEPS, 1e-11)
+def gather_report(h, res, setup, counts, res_j, tag):
+    """Log a gather-path run and hold its |e| at step GATHER_STEPS to the
+    lattice Jacobi run's (`limit`: 1e-11 native, 1e-9 Ozaki)."""
     from laghos_tpu_torch.timing import print_timing
 
     t = res.timing_data.t
@@ -500,7 +653,8 @@ def phase_flagship(dev):
     rel = abs(res.norms[GATHER_STEPS] - res_j.norms[GATHER_STEPS]) \
         / res_j.norms[GATHER_STEPS]
     drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
-    log(f"[5 gather] setup {setup:.3f} s, {res.steps} steps, step_ms "
+    limit = 1e-9 if h.oz is not None else 1e-11
+    log(f"[5 {tag}] setup {setup:.3f} s, {res.steps} steps, step_ms "
         f"{step_ms:.3f} (timed), phase seconds "
         + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
         + f"; FOM {fom['FOM']:.6g}, FOM1 {fom['FOM1']:.6g}, FOM2 "
@@ -509,24 +663,67 @@ def phase_flagship(dev):
         f"({res.h1_iters / (2 * 3 * res.steps):.2f} per component solve), "
         f"L2 {res.l2_iters} ({res.l2_iters / (2 * res.steps):.2f} per "
         f"solve); energy drift {drift:.3e}; peak device memory "
-        f"{peak / 2**30:.3f} GiB")
-    log(f"[5 gather] |e| at step {GATHER_STEPS}: {res.norms[GATHER_STEPS]!r}"
-        f" vs lattice {res_j.norms[GATHER_STEPS]!r}: rel {rel:.3e} "
-        f"(limit 1e-11); element kernel launches "
-        f"{launches['element', F64]} == q-updates {h.qupdate_calls}")
-    if not rel <= 1e-11:
-        raise AssertionError("gather and lattice paths disagree in |e|")
+        f"{peak / 2**30:.3f} GiB; split launches {counts['split']}")
+    log(f"[5 {tag}] |e| at step {GATHER_STEPS}: {res.norms[GATHER_STEPS]!r}"
+        f" vs lattice Jacobi {res_j.norms[GATHER_STEPS]!r}: rel {rel:.3e} "
+        f"(limit {limit:g}); element kernel launches "
+        f"{counts['element']} == q-updates {h.qupdate_calls}")
+    if not rel <= limit:
+        raise AssertionError(f"{tag}: gather and lattice paths disagree in "
+                             "|e|")
     if not drift <= 1e-12:
-        raise AssertionError(f"gather: RK2Avg energy drift {drift:.3e} > "
+        raise AssertionError(f"{tag}: RK2Avg energy drift {drift:.3e} > "
                              "1e-12")
+
+
+def _against(res, ref, tag, what):
+    """Hold an Ozaki run's final |e| within 1e-9 (relative) of the native
+    run `ref` over the same steps."""
+    if res.steps != ref.steps:
+        raise AssertionError(f"{tag}: {res.steps} steps against {ref.steps} "
+                             f"of {what}")
+    rel = abs(res.e_norm - ref.e_norm) / ref.e_norm
+    log(f"[5 {tag}] |e| after {res.steps} steps vs {what}: rel {rel:.3e} "
+        "(limit 1e-9)")
+    if not rel <= 1e-9:
+        raise AssertionError(f"{tag}: |e| departs from {what}")
+
+
+def phase_flagship(dev):
+    launches = {}
+
+    def add(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    run_j, counts = flagship_run(FLAGSHIP, "flagship")
+    add(("lattice", F64), counts["lattice"])
+    res_j = run_j.result
+    packed_check(run_j.hydro, res_j.S, "flagship")
+    del run_j
+    run_k, counts = flagship_run(FLAGSHIP_KRON, "kron")
+    res_k = run_k.result
+    del run_k
+    add(("lattice", F64), counts["lattice"])
+    if res_k.steps != res_j.steps:
+        raise AssertionError("kron and Jacobi runs took different steps")
+    rel_k = abs(res_k.e_norm - res_j.e_norm) / res_j.e_norm
+    log(f"[5 kron] |e| after {res_k.steps} steps vs the Jacobi run: rel "
+        f"{rel_k:.3e}; H1 CG iterations {res_k.h1_iters} vs "
+        f"{res_j.h1_iters}")
+
+    h, res, setup, counts = gather_run(dev, F64, GATHER_STEPS, 1e-11)
+    add(("element", F64), counts["element"])
+    gather_report(h, res, setup, counts, res_j, "gather")
     del h, res
 
-    _, launches_ns4 = flagship_run(NS4, "ns4")
-    launches["lattice", F64] += launches_ns4
+    run_4, counts = flagship_run(NS4, "ns4")
+    add(("lattice", F64), counts["lattice"])
+    res_4 = run_4.result
+    del run_4
 
     run32, counts, wall32, _ = drive(FLAGSHIP_F32)
     _only(counts, "lattice", run32.hydro.qupdate_calls, "f32 lattice")
-    launches["lattice", F32] = counts["lattice"]
+    add(("lattice", F32), counts["lattice"])
     e32 = run32.result.e_norm
     if not math.isfinite(e32):
         raise AssertionError("f32 flagship state is not finite")
@@ -534,10 +731,30 @@ def phase_flagship(dev):
         f"|e| {e32:.7e}, lattice kernel launches {counts['lattice']}")
     packed_check(run32.hydro, run32.result.S, "f32")
     del run32
-    h32, res32, _, launches["element", F32] = gather_run(dev, F32, 2, 2e-7)
+    h32, res32, _, counts = gather_run(dev, F32, 2, 2e-7)
+    add(("element", F32), counts["element"])
     log(f"[5 f32] gather: {res32.steps} steps, |e| {res32.e_norm:.7e}, "
-        f"element kernel launches {launches['element', F32]}")
+        f"element kernel launches {counts['element']}")
     del h32, res32
+    torch.cuda.empty_cache()
+
+    # the Ozaki mode on the same shapes, held to the native runs above
+    for argv, tag, ref, what in (
+            (FLAGSHIP_OZ, "ozaki", res_j, "the native Jacobi run"),
+            (FLAGSHIP_OZ_KRON, "ozaki kron", res_j, "the native Jacobi run"),
+            (NS4_OZ, "ozaki ns4", res_4, "the native ns4 run")):
+        run_o, counts = flagship_run(argv, tag)
+        add(("lattice", F64), counts["lattice"])
+        add("split", counts["split"])
+        _against(run_o.result, ref, tag, what)
+        del run_o
+        torch.cuda.empty_cache()
+    h, res, setup, counts = gather_run(dev, F64, GATHER_STEPS, 1e-11,
+                                       ozaki=True)
+    add(("element", F64), counts["element"])
+    add("split", counts["split"])
+    gather_report(h, res, setup, counts, res_j, "ozaki gather")
+    del h, res
     torch.cuda.empty_cache()
     return launches
 
@@ -550,15 +767,19 @@ def phase_repeat(dev):
 
     for path, rs, kw in (("lattice", 0, dict(t_final=0.6)),
                          ("lattice", 2, dict(t_final=0.6, max_steps=9)),
-                         ("gather", 0, dict(t_final=0.6))):
-        opt = GATHER if path == "gather" else {}
+                         ("gather", 0, dict(t_final=0.6)),
+                         ("ozaki lattice", 0, dict(t_final=0.6)),
+                         ("ozaki lattice", 2, dict(t_final=0.6,
+                                                   max_steps=9))):
+        opt = {"gather": GATHER, "lattice": {},
+               "ozaki lattice": {"ozaki": True}}[path]
         finals = []
         for _ in range(2):
             m = fmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
             for _ in range(rs):
                 m = fmesh.uniform_refine(m)
             h = Hydro(m, Options(problem=1, cg_tol=1e-14, **opt), device=dev)
-            if (h._lat is not None) != (path == "lattice"):
+            if (h._lat is not None) != (path != "gather"):
                 raise AssertionError(f"{path} repeat runs built the wrong "
                                      "path")
             finals.append(driver.run(h, vis_steps=10**6, **kw))
@@ -585,6 +806,10 @@ def main():
                     launches=launches.get((layout, dt), 0),
                     on_path=layout != "packed", **timed[layout, dt])
                for layout in LAYOUTS for dt in (F64, F32)]
+    kernels.append(dict(name="split_f64", route="cuda", source=SPLIT_SOURCE,
+                        replaces=SPLIT_REPLACES,
+                        launches=launches.get("split", 0), on_path=True,
+                        **timed["split"]))
     idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path never launched: {idle}")

@@ -4,7 +4,7 @@ Flag names follow laghos.cpp:181-278 and `laghos_tpu.cli`, e.g.:
     python -m laghos_tpu_torch -p 1 -dim 3 -rs 4 -s 7 -cgt 1e-11 -ms 20 -f
 The flags of the ported slice (conforming partial assembly on quad/hex
 meshes, the whole-lattice operators on Cartesian meshes, `--precond
-jacobi|auto|kron`) run; every other flag of `laghos_tpu.cli` is accepted
+jacobi|auto|kron`, the Ozaki f64 mode `--ozaki`) run; every other flag of `laghos_tpu.cli` is accepted
 by the parser and then refused with NotImplementedError naming the
 ROADMAP item that ports it.
 """
@@ -23,7 +23,7 @@ from .device import setup
 from .fem import mesh as fmesh
 from .hydro import Hydro, Options
 from .timing import print_timing
-from .verify import CHECKS_TABLE, run_checks
+from .verify import CHECKS_TABLE, OZAKI_CHECKS_EPS, run_checks
 
 # flags of laghos_tpu.cli outside this slice: (flags, dest, takes a value,
 # the ROADMAP item that ports it)
@@ -56,7 +56,6 @@ _NOT_PORTED = [
     (("-dt", "--deref-threshold"), "deref_threshold", True, "A13"),
     (("--device-loop",), "device_loop", False, "A8"),
     (("--mxu",), "mxu", True, "'Not to port' (a TPU MXU knob)"),
-    (("--ozaki",), "ozaki", False, "A10"),
     (("--checkpoint",), "checkpoint", True, "A7"),
     (("--restore",), "restore", True, "A7"),
     (("--debug-nans",), "debug_nans", False, "A7"),
@@ -111,6 +110,11 @@ def build_parser():
                         "inverse on Cartesian meshes), auto (kron where "
                         "available, else jacobi); schwarz is not ported "
                         "yet (ROADMAP A8)")
+    p.add_argument("--ozaki", action="store_true",
+                   help="3D f64 only: run the hot contractions as Ozaki "
+                        "int8 products (f64-accurate), with the "
+                        "mixed-precision IR velocity solve on Cartesian "
+                        "meshes")
     for flags, dest, takes_value, _ in _NOT_PORTED:
         if takes_value:
             p.add_argument(*flags, dest=dest, default=None,
@@ -159,7 +163,7 @@ def main(argv=None) -> CliRun:
         problem=args.problem, order_v=args.order_v, order_e=args.order_e,
         order_q=args.order_q, cfl=args.cfl, cg_tol=args.cg_tol,
         cg_max_iter=args.cg_max_iter, blast_energy=args.blast_energy,
-        ode_solver=args.ode_solver, precond=args.precond)
+        ode_solver=args.ode_solver, precond=args.precond, ozaki=args.ozaki)
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     h = Hydro(m, opt, dtype=dtype, device=device)
     setup_seconds = time.perf_counter() - t_setup
@@ -180,7 +184,8 @@ def main(argv=None) -> CliRun:
                      vis_steps=args.vis_steps, verbose=True,
                      timing=args.fom, check_steps=check_steps)
     if args.check:
-        run_checks(args.problem, m.dim, res.norms)
+        run_checks(args.problem, m.dim, res.norms,
+                   eps=OZAKI_CHECKS_EPS if args.ozaki else 1e-13)
         print("Checks passed.")
 
     rk_stages = {1: 1, 2: 2, 3: 3, 4: 4, 6: 8, 7: 2}[args.ode_solver]

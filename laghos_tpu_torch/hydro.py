@@ -11,9 +11,10 @@ with the force q-data recomputed by the q-update.
 
 Everything static (basis tables, gather maps, t=0 mass data, lattice
 tables) is built once on the host, in NumPy and CPU torch at the run's
-precision, then copied to the run's device.  The per-step work runs eagerly
-on that device.  Two operator paths, as in `laghos_tpu.hydro.Hydro` with
-ozaki=False, dense_ops=False, p_assembly=True:
+precision, then copied to the run's device (the card unless the caller asks
+for the CPU).  The per-step work runs eagerly on that device.  Two operator
+paths, as in `laghos_tpu.hydro.Hydro` with dense_ops=False,
+p_assembly=True:
 
 * the whole-lattice path (the default, `structured_el` and `lattice_ops`)
   on raster Cartesian meshes: elements sorted to raster order, dofs
@@ -27,6 +28,13 @@ ozaki=False, dense_ops=False, p_assembly=True:
   ops/structured.py when only `structured_el` holds) and the
   element-layout kernel.
 
+With `ozaki` (3D, f64) the hot contractions of either path run as Ozaki
+products, f64-accurate sums of exact int8 digit products (ops/omm.py, the
+split kernel `csrc/split.cu`): the banded chains of ops/lattice_oz.py with
+the mixed-precision iterative-refinement velocity solve on the lattice
+path, the dense element operators on the gather path, and the L2 energy
+CG's mass apply on both.
+
 Neither path assembles with atomics, so a run is bitwise repeatable on
 the card.
 """
@@ -39,13 +47,16 @@ import numpy as np
 import torch
 
 from . import problems
+from .device import setup
 from .fem import basis as fb
 from .fem import quadrature as fq
 from .fem.mesh import Mesh
 from .fem.space import build_h1_space
 from .ops import force as fop
 from .ops import lattice as lop
+from .ops import lattice_oz as lzo
 from .ops import mass as mop
+from .ops import omm
 from .ops import qupdate as qop
 from .ops import smallmat
 from .ops import structured
@@ -79,6 +90,27 @@ class Options:
                                 # (reference parity), "kron" (per-axis
                                 # Kronecker inverse on the lattice), "auto"
                                 # (kron where available, else jacobi)
+    ozaki: bool = False         # f64 mode of the JAX package's TPU: the hot
+                                # contractions (CG mass applies, force pair,
+                                # q-update interpolation) as Ozaki int8
+                                # products (ops/omm.py); banded chains on
+                                # raster meshes (ops/lattice_oz.py).  3D f64
+                                # only
+    ozaki_slices: int = 8       # dynamic slices of the lattice chains: 8 =
+                                # full f64 (~2^-56 truncation), 7 = ~2^-49
+    ozaki_rhs_slices: int = 0   # dynamic slices of the force chains (F.1,
+                                # grad v and the L2 transpose of F^T.v),
+                                # whose adjointness energy conservation rides
+                                # on; 0 = ozaki_slices
+    cg_ir: bool = True          # (ozaki, lattice path) velocity solve by
+                                # mixed-precision iterative refinement: f32
+                                # inner CG sweeps, Ozaki f64 outer residuals,
+                                # the f64 CG's stopping rule
+    cg_ir_inner_tol: float = 1e-5  # relative tolerance of the inner sweeps
+    cg_ir_inc: bool = True      # track the outer residual incrementally
+                                # (r <- r - A dx) at one slice fewer after
+                                # the first outer; off = every outer
+                                # recomputes r = b - A x at full slices
 
 
 # Sedov blast point and the distance within which a mesh vertex must lie
@@ -115,7 +147,9 @@ class Hydro:
     """All static data and the per-step operators of one run."""
 
     def __init__(self, mesh: Mesh, opt: Options, dtype=torch.float64,
-                 device="cpu"):
+                 device="cuda"):
+        """Static data of one run on `device` ("cuda", the default, or
+        "cpu"), resolved by device.setup: without a card "cuda" raises."""
         if mesh.dim not in (2, 3):
             raise NotImplementedError("1D is not ported yet (ROADMAP A6)")
         if opt.ode_solver not in (1, 2, 3, 4, 6, 7):
@@ -125,17 +159,32 @@ class Hydro:
                 "precond 'schwarz' is not ported yet (ROADMAP A8)")
         if opt.precond not in ("jacobi", "auto", "kron"):
             raise ValueError(f"unknown precond {opt.precond!r}")
+        if opt.ozaki:
+            if mesh.dim != 3 or dtype != torch.float64:
+                raise ValueError(
+                    "ozaki mode covers the 3D f64 partial-assembly path")
+            if not 1 <= opt.ozaki_slices <= omm.S_FULL:
+                raise ValueError(f"ozaki_slices must be in [1, {omm.S_FULL}]"
+                                 f", got {opt.ozaki_slices}")
+            if not 0 <= opt.ozaki_rhs_slices <= opt.ozaki_slices:
+                raise ValueError(
+                    f"ozaki_rhs_slices must be in [0, ozaki_slices = "
+                    f"{opt.ozaki_slices}], got {opt.ozaki_rhs_slices}")
+        self.device = setup(device)
         if opt.structured_el:
             mesh = structured.reorder_mesh_elements_to_raster(mesh) or mesh
         self.mesh = mesh
         self.opt = opt
         self.dtype = dtype
-        self.device = torch.device(device)
         npdt = np.float64 if dtype == torch.float64 else np.float32
         d = self.dim = mesh.dim
         NE = self.NE = mesh.num_elems
         pb = opt.problem
         self.qupdate_calls = 0
+        # IR velocity solve counts (see ir_stats); the inner sweeps add up
+        # on the device, so counting them costs no sync
+        self._ir = {"solves": 0, "outers": 0, "outer_applies": 0}
+        self._ir_inner = None
 
         self.source, self.use_visc, self.use_vort = problems.problem_flags(
             pb, d)
@@ -159,6 +208,24 @@ class Hydro:
                             for k, v in host.items()}
         self.tables = {k: self._dev(v) for k, v in self._tables_cpu.items()}
         self.tables["Winv"] = 1.0 / self.tables["W"]
+        self.oz = None
+        if opt.ozaki:
+            # dense element operators split once (8 slices, as the JAX
+            # package): the gather path's products and the L2 energy CG
+            h1bd, h1gd = top.dense_ops(h1b.B, h1b.G, d)
+            l2bd, _ = top.dense_ops(l2b.B, np.zeros_like(l2b.B), d)
+            gcat = np.concatenate(list(h1gd), axis=0)       # (3NQ, nd)
+
+            def sp(B):
+                return omm.split_static(B, device=self.device)
+
+            self.oz = {
+                "h1": (sp(h1bd.T), sp(h1bd)),
+                "l2": (sp(l2bd.T), sp(l2bd)),
+                "force": (sp(l2bd.T), sp(gcat)),
+                "forceT": (sp(gcat.T), sp(l2bd)),
+                "qup": (sp(gcat.T), sp(l2bd.T)),
+            }
         self._sm = (structured.detect_structure(mesh, self.h1.gather,
                                                 opt.order_v)
                     if opt.structured_el else None)
@@ -248,8 +315,11 @@ class Hydro:
         self.gamma_t = self._dev(torch.tensor(gamma_e, dtype=dtype))
         self.rho0DetJ0w_t = self._dev(torch.tensor(self.rho0DetJ0w,
                                                    dtype=dtype))
-        # whole-lattice operators (raster meshes only)
+        # whole-lattice operators (raster meshes only); in Ozaki mode their
+        # int8 splits and the f32 shadow of the mass operator for the inner
+        # sweeps of the IR velocity solve
         self._lat = self._lat_dims = self._edims = None
+        self._lat_oz = self._lat32 = None
         if opt.lattice_ops:
             built = lop.build_lattice_ops(
                 self, lambda t: self._dev(t.to(dtype)))
@@ -257,6 +327,16 @@ class Hydro:
                 self._lat_dims = built.pop("lat_dims")
                 self._lat = built
                 self._edims = self._sm.dims
+                if opt.ozaki:
+                    self._lat_oz = lzo.build_lattice_oz(
+                        h1b.B, h1b.G, l2bd, tuple(reversed(self._sm.dims)),
+                        n_slices=opt.ozaki_slices, device=self.device)
+                    self._lat32 = {
+                        "Ts": tuple(T.float() for T in built["Ts"]),
+                        "Dq": built["Dq"].float()}
+                    if "kron" in built:
+                        self._lat32["kron"] = tuple(
+                            Mk.float() for Mk in built["kron"])
         Jac0inv_t = torch.tensor(self.Jac0inv, dtype=dtype)
         if self._lat is not None:
             self.Jac0inv_t = None      # the lattice holds its own stack
@@ -380,11 +460,12 @@ class Hydro:
         if self._lat is not None:
             qup = (lop.qupdate3d_lattice if d == 3
                    else lop.qupdate2d_lattice)
+            kw = {} if d == 2 else {"oz": self._lat_oz}
             return qup(S["x"], S["v"], S["e"], self._lat, self._lat_dims,
                        self._edims, self.tables,
                        h1order=float(self.opt.order_v), cfl=self.opt.cfl,
                        use_viscosity=self.use_visc,
-                       use_vorticity=self.use_vort)
+                       use_vorticity=self.use_vort, **kw)
         x_e = self._gather_e(S["x"])
         v_e = self._gather_e(S["v"])
         if d == 3:
@@ -392,7 +473,8 @@ class Hydro:
                 x_e, v_e, S["e"], self.gamma_t, self.rho0DetJ0w_t,
                 self.Jac0inv_t, self.tables, self.h0,
                 h1order=float(self.opt.order_v), cfl=self.opt.cfl,
-                use_viscosity=self.use_visc, use_vorticity=self.use_vort)
+                use_viscosity=self.use_visc, use_vorticity=self.use_vort,
+                oz=None if self.oz is None else self.oz["qup"])
         return qop.qupdate(
             x_e, v_e, S["e"], self.gamma_t, self.rho0DetJ0w_t,
             self.Jac0inv_t, self.tables, self.h0,
@@ -418,6 +500,11 @@ class Hydro:
     def _force_rhs_raw(self, sJit):
         """F . 1 assembled to the H1 L-vector (the sw_force-timed part of
         SolveVelocity, laghos_solver.cpp:354)."""
+        if self._lat_oz is not None:
+            y = lzo.force_one_lattice_oz(
+                sJit, self._lat_oz,
+                n_slices=self.opt.ozaki_rhs_slices or None)
+            return fop._flush(y.reshape(self.dim, -1), self.ftz_eps2)
         if self._lat is not None:
             # reverse banded chains assemble the L-vector directly (the
             # L2 "ones" evaluate to 1)
@@ -425,7 +512,10 @@ class Hydro:
                   else lop.force_one_lattice_2d)
             y = f1(sJit, self._lat["Ts"], self._lat["Tg"])
             return fop._flush(y.reshape(self.dim, -1), self.ftz_eps2)
-        if self.dim == 3:
+        if self.oz is not None:
+            Fone = fop.force_mult9_oz(self.one_l2, sJit, self.oz["force"],
+                                      ftz_eps2=self.ftz_eps2)
+        elif self.dim == 3:
             Fone = fop.force_mult9(self.one_l2, sJit, self.tables,
                                    ftz_eps2=self.ftz_eps2)
         else:
@@ -441,12 +531,17 @@ class Hydro:
         return torch.where(self.ess_mask_t, torch.zeros_like(rhs), rhs)
 
     def _h1_apply_bc(self, u):
-        if self._lat is not None:
+        if self._lat_oz is not None:
+            y = lzo.mass_apply_lattice_oz(u, self._lat_oz, self._lat["Dq"],
+                                          self._lat_dims)
+        elif self._lat is not None:
             y = lop.mass_apply_lattice(u, self._lat["Ts"], self._lat["Dq"],
                                        self._lat_dims)
         else:
             ue = mop.mass_apply_e(self._l_to_e(u), self.massD,
-                                  self.tables["H1B"], self.dim)
+                                  self.tables["H1B"], self.dim,
+                                  oz=None if self.oz is None
+                                  else self.oz["h1"])
             y = self._assemble(ue)
         return torch.where(self.ess_mask_t, torch.zeros_like(y), y)
 
@@ -456,7 +551,97 @@ class Hydro:
                                           self._lat_dims)
         return r * self.h1_dinv[None, :]
 
+    def _cg_velocity_ir(self, rhs):
+        """Mixed-precision iterative-refinement velocity mass solve (Ozaki
+        lattice mode, `laghos_tpu.hydro.Hydro._cg_velocity_ir`): inner CG
+        sweeps in f32 on the f32 shadow of the banded operator, outer
+        residuals through the f64-accurate Ozaki apply.  Stops on the f64
+        CG's criterion (the Jacobi-weighted residual dot against its
+        initial value, laghos_solver.cpp:264-284), each component on its
+        own; at most 8 outers, one host sync per outer.
+
+        The inner sweeps run in full f32 (device.setup pins no TF32); the
+        JAX package's bf16 inner matmuls (cg_ir_inner_mxu) are a TPU knob,
+        so the card's inner counts are not the TPU's.  Returned iteration
+        count = inner sweeps + one per outer, per component, as in the JAX
+        package (FOM1 counts it)."""
+        ess = self.ess_mask_t
+        dinv = self.h1_dinv[None, :]
+        Ts32, Dq32 = self._lat32["Ts"], self._lat32["Dq"]
+        tol = self.opt.cg_tol
+
+        def apply32(u):
+            y = lop.mass_apply_lattice(u, Ts32, Dq32, self._lat_dims)
+            return torch.where(ess, torch.zeros_like(y), y)
+
+        # residual slices: the truncation 2^-7S sits about a decade below
+        # cg_tol; the incremental update runs at ONE slice fewer (two fewer
+        # degrade RK2Avg drift from 2e-13 to 1e-11, hydro.py:810-828 of the
+        # JAX package)
+        s_res = min(8, max(4, int(np.ceil((-np.log2(tol) + 3.4) / 7.0))))
+        s_lo = max(3, s_res - 1)
+
+        def apply_res(u, n_slices):
+            y = lzo.mass_apply_lattice_oz(u, self._lat_oz, self._lat["Dq"],
+                                          self._lat_dims, n_slices=n_slices)
+            return torch.where(ess, torch.zeros_like(y), y)
+
+        def rdot(r):
+            return torch.sum(r * r * dinv, dim=-1)
+
+        if "kron" in self._lat32:
+            kron32 = self._lat32["kron"]
+
+            def prec32(rr):
+                return lop.kron_precond_apply(rr, kron32, self._lat_dims)
+        else:
+            dinv32 = dinv.float()
+
+            def prec32(rr):
+                return rr * dinv32
+
+        x = torch.zeros_like(rhs)
+        r = rhs
+        target = rdot(rhs) * (tol * tol)
+        inner_max = min(self.opt.cg_max_iter, 100)
+        active = rdot(r) > target
+        it = torch.zeros(rhs.shape[0], dtype=torch.int64, device=rhs.device)
+        outers = 0
+        self._ir["solves"] += 1
+        while outers < 8:
+            n_active = int(active.sum())
+            if n_active == 0:
+                break
+            res = cg(apply32, r.float(), self.opt.cg_ir_inner_tol,
+                     inner_max, precond=prec32)
+            dx = torch.where(active[:, None], res.x.double(),
+                             torch.zeros_like(x))
+            x = x + dx
+            if self.opt.cg_ir_inc:
+                r = r - apply_res(dx, s_res if outers == 0 else s_lo)
+            else:
+                r = rhs - apply_res(x, s_res)
+            inner = torch.where(active, res.iters, torch.zeros_like(res.iters))
+            it = it + inner + active.to(inner.dtype)
+            self._ir_inner = (inner.sum() if self._ir_inner is None
+                              else self._ir_inner + inner.sum())
+            active = active & (rdot(r) > target)
+            outers += 1
+            self._ir["outers"] += 1
+            self._ir["outer_applies"] += n_active
+        return x, torch.sum(it)
+
+    def ir_stats(self) -> dict:
+        """Counts of the IR velocity solves so far: solves, outer
+        iterations, outer_applies (one per active component and outer: the
+        Ozaki residual applies) and inner_sweeps (the f32 CG iterations);
+        the CG-H1 count of these solves is inner_sweeps + outer_applies."""
+        inner = 0 if self._ir_inner is None else int(self._ir_inner)
+        return dict(self._ir, inner_sweeps=inner)
+
     def _cg_velocity(self, rhs):
+        if self._lat32 is not None and self.opt.cg_ir:
+            return self._cg_velocity_ir(rhs)
         res = cg(self._h1_apply_bc, rhs, self.opt.cg_tol,
                  self.opt.cg_max_iter, precond=self._precond_velocity)
         return res.x, torch.sum(res.iters)
@@ -488,9 +673,14 @@ class Hydro:
         if self._lat is not None:
             fT = (lop.force_transpose_lattice if self.dim == 3
                   else lop.force_transpose_lattice_2d)
+            kw = {} if self.dim == 2 else dict(
+                oz=self._lat_oz, oz_slices=self.opt.ozaki_rhs_slices or None)
             return fT(v, sJit, self._lat, self._lat_dims, self._edims,
-                      self.tables)
+                      self.tables, **kw)
         v_e = self._gather_e(v)
+        if self.oz is not None:
+            return fop.force_mult_transpose9_oz(v_e, sJit,
+                                                self.oz["forceT"])
         if self.dim == 3:
             return fop.force_mult_transpose9(v_e, sJit, self.tables)
         return fop.force_mult_transpose(v_e, sJit, self.tables, dim=self.dim)
@@ -499,7 +689,8 @@ class Hydro:
         def apply_A(u):
             ue = u.reshape(self.NE, self.ld)
             ue = mop.mass_apply_e(ue, self.massD, self.tables["L2B"],
-                                  self.dim)
+                                  self.dim, oz=None if self.oz is None
+                                  else self.oz["l2"])
             return ue.reshape(1, -1)
 
         res = cg(apply_A, e_rhs.reshape(1, -1), self.opt.cg_tol,

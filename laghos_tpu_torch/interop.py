@@ -59,3 +59,29 @@ def lattice_arrays(h) -> dict:
     out["dims"] = tuple(h._sm.dims)
     out["lat_dims"] = tuple(h._lat_dims)
     return out
+
+
+def _split_arrays(st) -> dict:
+    """One `ops/omm.StaticSplit` as NumPy under the JAX package's field
+    names."""
+    return {"slices": tuple(_np(t) for t in st.slices),
+            "levels": tuple(st.levels), "scale": _np(st.scale),
+            "e": tuple(st.e), "n_slices": st.n_slices,
+            "stacks": tuple(_np(t) for t in st.stacks)}
+
+
+def ozaki_arrays(h) -> dict:
+    """The static Ozaki splits of a port `Hydro` as NumPy, under the keys
+    of `laghos_tpu.hydro.Hydro`: "oz" (h.oz: h1, l2, force, forceT, qup,
+    each a pair of splits) and "lat_oz" (h._lat_oz: fwdB, bwdB, fwdG, bwdG
+    per lattice axis, l2fwd, l2bwd; None off the lattice path).  None
+    outside Ozaki mode."""
+    if h.oz is None:
+        return None
+    lat = None
+    if h._lat_oz is not None:
+        lat = {k: tuple(_split_arrays(s) for s in v) if isinstance(v, tuple)
+               else _split_arrays(v) for k, v in h._lat_oz.items()}
+    return {"oz": {k: tuple(_split_arrays(s) for s in v)
+                   for k, v in h.oz.items()},
+            "lat_oz": lat}

@@ -6,7 +6,9 @@ bilinear form is
 with phi the H1 basis, psi the L2 basis and stressJinvT the per-point
 (stress . J^{-1})^T w detJ data produced by the q-update.  Both the action
 (energy -> momentum RHS) and its transpose (velocity -> energy RHS) are
-chains of sum-factorized contractions over the element axis.
+chains of sum-factorized contractions over the element axis; in Ozaki
+mode (`*_oz`) the 3D pair runs as dense f64-accurate int8 products
+(ops/omm.py).
 """
 
 from __future__ import annotations
@@ -112,3 +114,41 @@ def force_mult_transpose9(v_e, sJit9, tables):
             eq = term if eq is None else eq + term
     out = tensor.eval_transpose(eq, L2Bt, d)
     return out.reshape(NE, l1d**d)
+
+
+def force_mult9_oz(e_b, sJit9, oz, *, ftz_eps2: float):
+    """3D F . e from Ozaki products (f64-accurate, ops/omm.py).
+
+    oz = (l2_fwd (ld, NQ), gcat (3NQ, nd)) static splits: the three
+    grad-transpose directions run as ONE product against the
+    row-concatenated [G_0; G_1; G_2], sharing one dynamic split of the
+    per-direction stress-weighted field.  sJit9: (9, NE, NQ), [gd*3+vd].
+    Returns (NE, 3, nd)."""
+    from . import omm
+
+    l2_fwd, gcat = oz
+    NE, NQ = sJit9.shape[1:]
+    EQ = omm.matmul(e_b, l2_fwd)                   # (NE, NQ)
+    # Y[e, vd, gd*NQ + q] = EQ[e, q] * sJit9[gd*3 + vd, e, q]
+    Y = (EQ[None, None] * sJit9.reshape(3, 3, NE, NQ)).permute(2, 1, 0, 3)
+    out = omm.matmul(Y.reshape(NE, 3, 3 * NQ), gcat)   # (NE, 3, nd)
+    return _flush(out, ftz_eps2)
+
+
+def force_mult_transpose9_oz(v_e, sJit9, oz):
+    """3D F^T . v from Ozaki products (see force_mult9_oz).
+
+    oz = (gcatT (nd, 3NQ), l2_bwd (NQ, ld)): one dynamic split of v_e feeds
+    all three gradient directions through the column-concatenated
+    [G_0^T | G_1^T | G_2^T].  Returns (NE, ld)."""
+    from . import omm
+
+    gcatT, l2_bwd = oz
+    NQ = sJit9.shape[-1]
+    dv = omm.matmul(v_e, gcatT)                    # (NE, 3, 3NQ)
+    eq = None
+    for gd in range(3):
+        for vd in range(3):
+            term = dv[:, vd, gd * NQ:(gd + 1) * NQ] * sJit9[gd * 3 + vd]
+            eq = term if eq is None else eq + term
+    return omm.matmul(eq, l2_bwd)                  # (NE, ld)

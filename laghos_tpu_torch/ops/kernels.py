@@ -1,10 +1,14 @@
 """Build and bind the hand-written CUDA kernels in `laghos_tpu_torch/csrc/`.
 
-The sources are compiled with nvcc for Hopper (`sm_90a`) into a shared
-library with a plain C interface, loaded with ctypes.  The build happens at
-first use, on the machine with the card, into `laghos_tpu_torch/build/`
-(listed in .gitignore), keyed on a hash of the sources and flags, so a
-fresh checkout builds once and later processes reuse the library.
+The sources are compiled with nvcc for Hopper (`sm_90a`), one nvcc per
+source, all started together, then linked into one shared library with a
+plain C interface, loaded with ctypes.  The build happens at first use, on
+the machine with the card, into `laghos_tpu_torch/build/` (listed in
+.gitignore), keyed on a hash of the sources and flags, so a fresh checkout
+builds once and later processes reuse the library.
+
+Kernels: `csrc/qphys.cu` (the q-point physics, `launch_qphys`) and
+`csrc/split.cu` (the Ozaki split, `launch_split`).
 
 Nothing is built or loaded while the package is imported: the CPU tests
 import every module, and a kernel is built only when a wrapper is first
@@ -27,17 +31,17 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-# No fast math: IEEE div/sqrt and no flush-to-zero (nvcc's defaults).
+# No fast math: IEEE div/sqrt and no flush to zero (nvcc's defaults).
 # -Xptxas -v writes registers, shared memory and spills to the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
 class Build:
     path: Path          # the shared library
     log: str            # nvcc's output (ptxas register/spill report)
-    seconds: float      # compile time; 0.0 when the library was cached
+    seconds: float      # compile + link time; 0.0 when the library was cached
 
 
 def _nvcc() -> str:
@@ -51,30 +55,52 @@ def _nvcc() -> str:
                        "toolkit on the machine with the card")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; (joined output, first failure)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs, failed = [], None
+    for cmd, proc in zip(cmds, procs):
+        outs.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, " ".join(cmd), outs[-1])
+    return "".join(outs), failed
+
+
 def build() -> Build:
-    """Compile csrc/*.cu into build/libqphys_<hash>.so (once per source
-    version) and return where it is."""
+    """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
+    into build/liblaghos_<hash>.so, once per source version; return where
+    it is."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     key = digest.hexdigest()[:16]
-    so = BUILD_DIR / f"libqphys_{key}.so"
-    log = BUILD_DIR / f"libqphys_{key}.log"
+    so = BUILD_DIR / f"liblaghos_{key}.so"
+    log = BUILD_DIR / f"liblaghos_{key}.log"
     if so.exists():
         return Build(so, log.read_text() if log.exists() else "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libqphys_{key}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+    tmp = BUILD_DIR / f"liblaghos_{tag}.tmp.so"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out, failed = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                            for src, o in zip(sources, objs)])
+    if failed is None:
+        link, failed = _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        out += link
     seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{out}")
+        code, cmd, text = failed
+        raise RuntimeError(f"nvcc failed ({code}):\n{cmd}\n{text}")
     log.write_text(out)
     os.replace(tmp, so)       # atomic: concurrent builders agree
     return Build(so, out, seconds)
@@ -95,6 +121,10 @@ def library():
         p, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_int, ctypes.c_int, p]
     lib.qphys_launch.restype = ctypes.c_int
+    lib.split_launch.argtypes = [
+        ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int, p]
+    lib.split_launch.restype = ctypes.c_int
     lib.qphys_error_string.argtypes = [ctypes.c_int]
     lib.qphys_error_string.restype = ctypes.c_char_p
     return lib, b
@@ -125,3 +155,21 @@ def launch_qphys(layout, J, dV, J0i, e_q, rw, gamma, winv, sJit, dtq, visc,
     if err != 0:
         msg = lib.qphys_error_string(err).decode()
         raise RuntimeError(f"qphys kernel launch failed: {msg} ({err})")
+
+
+def launch_split(A, D, scale, *, R1, k, R2, kp, n_slices):
+    """Launch csrc/split.cu on PyTorch's current stream: the Ozaki split of
+    the contiguous f64 CUDA tensor A, viewed as (R1, k, R2), into the int8
+    digits D (R1 * R2, n_slices * kp) and the f64 scales (R1 * R2,).  The
+    caller (ops/omm.split_dyn) checks and allocates.  Raises on a refused
+    launch."""
+    import torch
+
+    lib, _ = library()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = lib.split_launch(A.device.index, A.data_ptr(), D.data_ptr(),
+                           scale.data_ptr(), int(R1), int(k), int(R2),
+                           int(kp), int(n_slices), stream)
+    if err != 0:
+        msg = lib.qphys_error_string(err).decode()
+        raise RuntimeError(f"split kernel launch failed: {msg} ({err})")

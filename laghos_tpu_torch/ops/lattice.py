@@ -1,7 +1,8 @@
 """Whole-lattice banded-operator contractions on raster Cartesian meshes.
 
-The torch counterpart of `laghos_tpu.ops.lattice` (without its Ozaki
-branches).  On a raster-renumbered Cartesian mesh the H1 L-vector is a
+The torch counterpart of `laghos_tpu.ops.lattice`; its Ozaki branches
+(`oz`, an `ops/lattice_oz` build) run the same chains as f64-accurate int8
+products.  On a raster-renumbered Cartesian mesh the H1 L-vector is a
 dense (Lz, Ly, Lx) lattice (x fastest), L = n*p + 1 per axis.  The per-axis
 dof->qpoint evaluation is one banded matrix T (L, n*nq) with
 T[e*p + a, e*nq + q] = B1d[q, a]: the element overlap lands in distinct
@@ -239,21 +240,34 @@ def force_transpose_lattice_2d(vL, sJ, lat, lat_dims, edims, tables):
 
 
 def qupdate3d_lattice(xL, vL, e_b, lat, lat_dims, edims, tables, *,
-                      h1order, cfl, use_viscosity, use_vorticity):
+                      h1order, cfl, use_viscosity, use_vorticity, oz=None):
     """Whole-lattice 3D q-update: banded gradients feeding the pointwise
     physics on the q-lattice (ops/qphys.physics_3d_lattice, the CUDA
     kernel on the card).
 
     xL/vL: (3, ndof) raster L-vectors; e_b: (NE, ld) L2 dofs; lat: the
-    lattice tables and q-lattice constants of `build_lattice_ops`.
-    Returns (sJit (9, Qz, Qy, Qx), dt_est)."""
+    lattice tables and q-lattice constants of `build_lattice_ops`.  With
+    `oz` (an ops/lattice_oz build) the gradients and the L2 evaluation run
+    as Ozaki products (`grad18_lattice_oz`, or `grad9_lattice_oz` when
+    inviscid, then `l2_eval_oz`).  Returns (sJit (9, Qz, Qy, Qx), dt_est)."""
     TB, TG = lat["Ts"], lat["Tg"]
-    J9 = torch.stack(grad9_lattice(xL.reshape((3,) + tuple(lat_dims)),
-                                   TB, TG))
-    e_q = energy_qlattice(e_b, edims, tables, 3)
-    dV9 = (torch.stack(grad9_lattice(vL.reshape((3,) + tuple(lat_dims)),
-                                     TB, TG))
-           if use_viscosity else None)
+    x3 = xL.reshape((3,) + tuple(lat_dims))
+    v3 = vL.reshape((3,) + tuple(lat_dims))
+    if oz is not None:
+        from . import lattice_oz as lzo
+
+        nq1 = tables["H1B"].shape[0]
+        if use_viscosity:
+            J9, dV9 = lzo.grad18_lattice_oz(x3, v3, oz)
+        else:
+            J9, dV9 = lzo.grad9_lattice_oz(x3, oz), None
+        e_q = eq_to_qlattice(lzo.l2_eval_oz(e_b, oz), edims,
+                             nq1).contiguous()
+    else:
+        J9 = torch.stack(grad9_lattice(x3, TB, TG))
+        e_q = energy_qlattice(e_b, edims, tables, 3)
+        dV9 = (torch.stack(grad9_lattice(v3, TB, TG))
+               if use_viscosity else None)
     sJit9, dtq = qphys.physics_3d_lattice(
         J9, dV9, lat["J0i9"], e_q, lat["rw"], lat["gam"], lat["winv"],
         h0=lat["h0"], h1order=h1order, cfl=cfl,
@@ -262,18 +276,27 @@ def qupdate3d_lattice(xL, vL, e_b, lat, lat_dims, edims, tables, *,
     return sJit9, torch.min(dtq)
 
 
-def force_transpose_lattice(vL, sJ, lat, lat_dims, edims, tables):
+def force_transpose_lattice(vL, sJ, lat, lat_dims, edims, tables, oz=None,
+                            oz_slices=None):
     """F^T . v from q-lattice stress data sJ (9, Qz, Qy, Qx): e_rhs
-    (NE, ld)."""
+    (NE, ld).  With `oz` the gradients and the L2 transpose run as Ozaki
+    products at `oz_slices` dynamic slices (None: the build's count)."""
     nq1 = tables["H1B"].shape[0]
-    dV9 = grad9_lattice(vL.reshape((3,) + tuple(lat_dims)), lat["Ts"],
-                        lat["Tg"])
+    v3 = vL.reshape((3,) + tuple(lat_dims))
+    if oz is not None:
+        from . import lattice_oz as lzo
+
+        dV9 = lzo.grad9_lattice_oz(v3, oz, n_slices=oz_slices)
+    else:
+        dV9 = grad9_lattice(v3, lat["Ts"], lat["Tg"])
     eq = None
     for gd in range(3):
         for vd in range(3):
             term = dV9[vd * 3 + gd] * sJ[gd * 3 + vd]
             eq = term if eq is None else eq + term
     eq = qlattice_to_eq(eq, edims, nq1)
+    if oz is not None:
+        return lzo.l2_transpose_oz(eq, oz, n_slices=oz_slices)
     et = eq.reshape((eq.shape[0],) + (nq1,) * 3)
     out = tensor.eval_transpose(et, tables["L2B"].T, 3)
     return out.reshape(eq.shape[0], -1)

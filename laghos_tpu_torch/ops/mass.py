@@ -70,8 +70,18 @@ def e_to_l_gather(u_e, incidence, mask):
     return torch.sum(vals * mask, dim=-1)
 
 
-def mass_apply_e(u_e, D, B, dim):
-    """Element-local mass apply: B^T (D * (B u)) on (..., NE, nd)."""
+def mass_apply_e(u_e, D, B, dim, oz=None):
+    """Element-local mass apply: B^T (D * (B u)) on (..., NE, nd).
+
+    With oz = (fwd StaticSplit (nd, NQ), bwd StaticSplit (NQ, nd)) of the
+    dense operator the two products run as f64-accurate Ozaki products
+    (ops/omm.py)."""
+    if oz is not None:
+        from . import omm
+
+        fwd, bwd = oz
+        q = omm.matmul(u_e, fwd)
+        return omm.matmul(q * D, bwd)
     nd1 = B.shape[1]
     nq1 = B.shape[0]
     shp = u_e.shape

@@ -152,13 +152,16 @@ def _grad9(u_e, H1B, H1G, nd1, NQ):
 
 
 def qupdate3d(x_e, v_e, e_b, gamma, rho0DetJ0w, Jac0inv9, tables, h0, *,
-              h1order, cfl, use_viscosity, use_vorticity):
+              h1order, cfl, use_viscosity, use_vorticity, oz=None):
     """Scalarized 3D q-update: returns (sJit (9, NE, NQ), dt_est).
 
     Same physics as `laghos_tpu.ops.qupdate.qupdate3d` (its sum-factorized
-    branch); the 9 components of J, grad v and sJit travel stacked on a
-    leading axis.  Jac0inv9 is the matching (9, NE, NQ) stack, and
-    tables["Winv"] holds 1/W.
+    branch, or with `oz` its Ozaki branch); the 9 components of J, grad v
+    and sJit travel stacked on a leading axis.  Jac0inv9 is the matching
+    (9, NE, NQ) stack, and tables["Winv"] holds 1/W.  oz = (gcatT, l2_fwd)
+    static splits: ONE dynamic split of the stacked (x, v) E-vectors feeds
+    all three gradient directions through the column-concatenated dense
+    operator.
     """
     d = 3
     NE = x_e.shape[0]
@@ -168,10 +171,26 @@ def qupdate3d(x_e, v_e, e_b, gamma, rho0DetJ0w, Jac0inv9, tables, h0, *,
     NQ = nq1**d
     l1d = L2B.shape[1]
 
-    J9 = _grad9(x_e, H1B, H1G, nd1, NQ)
-    dV9 = _grad9(v_e, H1B, H1G, nd1, NQ) if use_viscosity else None
-    et = e_b.reshape((NE,) + (l1d,) * d)
-    e_q = tensor.eval_values(et, L2B, d).reshape(NE, NQ)
+    if oz is not None:
+        from . import omm
+
+        gcatT, l2_fwd = oz
+        xv = torch.cat([x_e, v_e], dim=1)               # (NE, 2d, nd)
+        dxv = omm.matmul(xv, gcatT).reshape(NE, 2 * d, d, NQ)
+
+        def stack9(c0):
+            # component 3a + b = d u_{c0+a} / d xhat_b
+            return (dxv[:, c0:c0 + d].permute(1, 2, 0, 3)
+                    .reshape(9, NE, NQ).contiguous())
+
+        J9 = stack9(0)
+        dV9 = stack9(d) if use_viscosity else None
+        e_q = omm.matmul(e_b, l2_fwd)
+    else:
+        J9 = _grad9(x_e, H1B, H1G, nd1, NQ)
+        dV9 = _grad9(v_e, H1B, H1G, nd1, NQ) if use_viscosity else None
+        et = e_b.reshape((NE,) + (l1d,) * d)
+        e_q = tensor.eval_values(et, L2B, d).reshape(NE, NQ)
     sJit9, dtq = qphys.physics_3d(
         J9, dV9, Jac0inv9, e_q, rho0DetJ0w, gamma, tables["Winv"],
         h0_e=h0, h1order=h1order, cfl=cfl, use_viscosity=use_viscosity,

@@ -63,3 +63,25 @@ def eval_gradient_dir(u: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
     for k in range(d):
         u = apply_axis(u, G if k == b else B, k, d)
     return u
+
+
+def dense_ops(B, G, d: int):
+    """Dense dof->qpoint operators from 1D tables (host NumPy): (NQ, nd)
+    matrices with x the FASTEST axis on both flat indices (matching the
+    gather maps and the flat W ordering).  Returns (Bd, [Gd_0 .. Gd_{d-1}]),
+    as `laghos_tpu.ops.tensor.dense_ops`; the Ozaki gather path splits them
+    once at setup (ops/omm.split_static)."""
+    import numpy as np
+
+    Bn = np.asarray(B)
+    Gn = np.asarray(G)
+    Bd = np.ones((1, 1))
+    for _ in range(d):
+        Bd = np.kron(Bn, Bd)      # x fastest
+    Gds = []
+    for b in range(d):
+        M = np.ones((1, 1))
+        for k in range(d):
+            M = np.kron(Gn if k == b else Bn, M)
+        Gds.append(M)
+    return Bd, Gds

@@ -30,6 +30,7 @@ CASES = {
                                  precond="jacobi")),
     "ns4_lattice_jacobi": (3, 4, 3, dict(precond="jacobi")),
     "ns4_lattice_kron": (3, 4, 3, dict(precond="kron")),
+    "ns2_lattice_ozaki": (4, 2, 1, dict(precond="jacobi", ozaki=True)),
 }
 
 
@@ -86,6 +87,8 @@ def profile_case(dev, rs, order_v, order_e, opt, *, warm=2, timed=5,
     step_ms = (time.perf_counter() - t0) / timed * 1e3
     rec = dict(NE=h.NE, NQ=h.NQ, lattice=h._lat_dims, setup_s=setup_s,
                step_ms=step_ms, cg_iters_h1_l2=iters)
+    if h.oz is not None:
+        rec["ir_stats"] = h.ir_stats()
     if dev.type == "cuda":
         rec["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     acts = [ProfilerActivity.CPU]

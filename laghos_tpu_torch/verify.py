@@ -28,6 +28,12 @@ CHECKS_TABLE = {
 }
 
 
+# The --checks tolerance of the Ozaki mode: its q-update gradients truncate
+# at 6 slices (~2^-42), so 3D Sedov |e| departs from the native run by
+# 1.46e-13 at step 20 (tests/test_torch_ozaki.py); the gate is twice that.
+OZAKI_CHECKS_EPS = 3e-13
+
+
 def run_checks(problem: int, dim: int, norms: dict, eps: float = 1e-13):
     """The --checks gate (laghos.cpp:1417-1474): both table entries must
     have been sampled and match to relative tolerance eps."""

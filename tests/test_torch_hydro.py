@@ -52,7 +52,8 @@ def test_stage_pieces_and_steps_match_jax(dim):
     """One perturbed state through every stage piece, then 3 steps of the
     memoized `advance`, in both packages."""
     ht = THydro(tdata.get_mesh(MESH[dim]),
-                TOptions(problem=1, cg_tol=1e-14, **PATHS["gather"]))
+                TOptions(problem=1, cg_tol=1e-14, **PATHS["gather"]),
+                device="cpu")
     hj = JHydro(jdata.get_mesh(MESH[dim]),
                 JOptions(problem=1, cg_tol=1e-14, structured_el=False,
                          lattice_ops=False, precond="jacobi"))
@@ -98,7 +99,8 @@ def test_stage_pieces_and_steps_match_jax(dim):
 
 def _checks_run(dim, problem, path):
     m = tmesh.cartesian(dim, (2,) * dim, (1.0,) * dim)
-    h = THydro(m, TOptions(problem=problem, cg_tol=1e-14, **PATHS[path]))
+    h = THydro(m, TOptions(problem=problem, cg_tol=1e-14, **PATHS[path]),
+               device="cpu")
     assert (h._lat is not None) == (path == "lattice")
     steps = tuple(s for s, _ in CHECKS_TABLE[dim][problem])
     res = driver.run(h, t_final=0.6, vis_steps=10**6, check_steps=steps)
@@ -138,7 +140,7 @@ def test_checks_goldens_other_problems(dim, problem, path):
 def test_rk2avg_energy_drift(path):
     m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
     h = THydro(m, TOptions(problem=1, ode_solver=7, cg_tol=1e-14,
-                           **PATHS[path]))
+                           **PATHS[path]), device="cpu")
     res = driver.run(h, t_final=0.6, max_steps=10, vis_steps=10**6)
     assert res.steps >= 10
     drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
@@ -163,7 +165,7 @@ def test_cli_subprocess_smoke():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-fa"], "A6"), (["--ozaki"], "A10"), (["-rp", "1"], "A11"),
+    (["-fa"], "A6"), (["--device-loop"], "A8"), (["-rp", "1"], "A11"),
     (["--precond", "schwarz"], "A8"), (["-amr"], "A13"),
     (["--checkpoint", "x.npz"], "A7")])
 def test_cli_refuses_unported_flags(argv, item):
@@ -176,3 +178,14 @@ def test_cli_cuda_without_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-d", "cuda", "-rs", "0", "-ms", "1"])
+
+
+def test_hydro_defaults_to_the_card():
+    """`Hydro` runs on the card unless the caller asks for the CPU: without
+    one it raises, as the CLI does, instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        THydro(m, TOptions())
+    assert THydro(m, TOptions(), device="cpu").device == torch.device("cpu")

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (element, q-lattice and packed layouts of
-csrc/qphys.cu, f64 and f32) against their plain PyTorch versions, on the
-card.  This file imports neither JAX nor `laghos_tpu`, so it also runs
+csrc/qphys.cu, f64 and f32; the Ozaki split of csrc/split.cu) against their
+plain PyTorch versions, on the card, and the Ozaki int8 products of
+ops/omm.py on the card against the same products on the CPU.  This file imports neither JAX nor `laghos_tpu`, so it also runs
 on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -15,6 +16,7 @@ import torch
 from laghos_tpu_torch.fem import mesh as tmesh
 from laghos_tpu_torch.hydro import Hydro, Options
 from laghos_tpu_torch.ops import lattice as tlat
+from laghos_tpu_torch.ops import omm
 from laghos_tpu_torch.ops import qphys
 from laghos_tpu_torch.ops import qupdate as tqup
 from laghos_tpu_torch.ops import tensor as ttensor
@@ -168,3 +170,97 @@ def test_qphys_packed_kernel_matches_plain(qdata, dtype, tol, visc, vort):
     fin = ~torch.isnan(v_p)
     scale = max(float(v_p[fin].abs().max()), 1e-300)
     assert float((v_k[fin] - v_p[fin]).abs().max()) <= tol * scale
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _split_operand(seed=0):
+    """(3, 17, 33) f64 with mixed magnitudes, an all-zero row, a NaN row
+    and an Inf row along axis 1."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((3, 17, 33)) * np.exp2(
+        rng.integers(-30, 30, (3, 17, 33)))
+    A[1, :, 5] = 0.0
+    A[2, 4, 7] = np.nan
+    A[0, 9, 30] = np.inf
+    return torch.tensor(A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("S", [8, 6, 4])
+def test_split_kernel_matches_plain_bitwise(axis, S):
+    dev = _card()
+    A = _split_operand().to(dev)
+    before = omm.split_dyn.launches
+    k = omm.split_dyn(A, S, axis)
+    torch.cuda.synchronize()
+    assert omm.split_dyn.launches == before + 1
+    p = omm.split_dyn_plain(A, S, axis)
+    assert torch.equal(k.cat, p.cat)
+    assert torch.equal(k.scale.view(torch.int64), p.scale.view(torch.int64))
+    assert int(torch.isnan(k.scale).sum()) > 0
+    c = omm.split_dyn_plain(A.cpu(), S, axis)
+    assert torch.equal(k.cat.cpu(), c.cat)
+
+
+@pytest.mark.cuda
+def test_split_dyn_never_falls_back_on_card(monkeypatch):
+    dev = _card()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(omm, "split_dyn_plain", refuse)
+    A = torch.randn(40, 65, dtype=torch.float64, device=dev)
+    before = omm.split_dyn.launches
+    omm.split_dyn(A, 8)
+    torch.cuda.synchronize()
+    assert omm.split_dyn.launches == before + 1
+    with pytest.raises(TypeError):
+        omm.split_dyn(A.float())
+    with pytest.raises(ValueError):
+        omm.split_dyn(A.t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis,n,S", [
+    ((3, 17, 29), 1, 12, 8), ((2, 65, 9), 1, 65, 8), ((5, 65), 1, 128, 8),
+    ((4, 3, 64), 2, 8, 6), ((7, 8, 6), 0, 27, 4)])
+def test_int8_products_on_card_match_cpu(shape, axis, n, S):
+    """The padded cuBLASLt int8 product and the reconstruction on the card
+    give the CPU's bits (exact int32 sums, the same elementwise ops)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    A = torch.tensor(rng.standard_normal(shape))
+    B = rng.standard_normal((shape[axis], n))
+    y_cpu = omm.tensordot(A, omm.split_static(B), axis, S)
+    y_gpu = omm.tensordot(A.to(dev), omm.split_static(B, device=dev), axis,
+                          S)
+    assert torch.equal(y_gpu.cpu(), y_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(structured_el=False,
+                                         lattice_ops=False,
+                                         precond="jacobi")])
+def test_ozaki_mult_on_card_matches_cpu(kw):
+    dev = _card()
+    m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
+    opt = dict(problem=1, blast_energy=2.0, cg_tol=1e-12, ozaki=True, **kw)
+    hc = Hydro(m, Options(**opt), device="cpu")
+    hg = Hydro(m, Options(**opt), device=dev)
+    before = omm.split_dyn.launches
+    a, dta, _ = hc._mult(hc.S0)
+    b, dtb, _ = hg._mult(hg.S0)
+    torch.cuda.synchronize()
+    assert omm.split_dyn.launches > before
+    for key in ("x", "v", "e"):
+        ref = a[key]
+        err = float((b[key].cpu() - ref).abs().max())
+        assert err <= 1e-12 * max(float(ref.abs().max()), 1e-300), key
+    assert abs(float(dtb) - float(dta)) <= 1e-12 * float(dta)

@@ -53,7 +53,8 @@ def _pair(name, rs, **kw):
         # cg_tol 1e-12: at 1e-14 the stopping test sits at round-off and
         # an iteration count can differ by one between the packages
         opt = dict(problem=1, cg_tol=1e-12, **kw)
-        ht, hj = THydro(mt, TOptions(**opt)), JHydro(mj, JOptions(**opt))
+        ht = THydro(mt, TOptions(**opt), device="cpu")
+        hj = JHydro(mj, JOptions(**opt))
         assert ht._lat is not None and hj._lat is not None
         rng = np.random.default_rng(1)
         S0 = {k: np.asarray(v) for k, v in hj.S0.items()}
@@ -109,20 +110,21 @@ def test_lattice_arrays_q4q3_and_f32():
     every lattice tensor in f32; no lattice -> None."""
     mt, mj = tdata.get_mesh("cube01_hex"), jdata.get_mesh("cube01_hex")
     opt = dict(problem=1, order_v=4, order_e=3)
-    ht, hj = THydro(mt, TOptions(**opt)), JHydro(mj, JOptions(**opt))
+    ht = THydro(mt, TOptions(**opt), device="cpu")
+    hj = JHydro(mj, JOptions(**opt))
     a = lattice_arrays(ht)
     assert a["lat_dims"] == tuple(hj._lat_dims) == (9, 9, 9)
     for x, y in zip(a["Tg"], hj._lat["Tg"]):
         np.testing.assert_array_equal(x, np.asarray(y))
     assert _rel(a["Dq"], hj._lat["Dq"]) <= 1e-14
     h32 = THydro(tdata.get_mesh("cube01_hex"), TOptions(problem=1),
-                 dtype=torch.float32)
+                 dtype=torch.float32, device="cpu")
     for k, v in h32._lat.items():
         for t in (v if isinstance(v, tuple) else (v,)):
             if isinstance(t, torch.Tensor):
                 assert t.dtype == torch.float32, k
     hg = THydro(tdata.get_mesh("cube01_hex"),
-                TOptions(problem=1, lattice_ops=False))
+                TOptions(problem=1, lattice_ops=False), device="cpu")
     assert lattice_arrays(hg) is None
 
 
@@ -237,7 +239,7 @@ def test_kron_absent_when_free_set_not_axis_product():
     assert tlat.build_kron_precond(mask, ht._lat_dims, Dq, Ts) is None
     assert jlat.build_kron_precond(mask, ht._lat_dims, Dq, Ts) is None
     hjac = THydro(tdata.get_mesh("box01_hex"),
-                  TOptions(problem=1, precond="jacobi"))
+                  TOptions(problem=1, precond="jacobi"), device="cpu")
     assert "kron" not in hjac._lat
     r = _t(np.random.default_rng(0).normal(size=(3, hjac.ndof)))
     assert torch.equal(hjac._precond_velocity(r), r * hjac.h1_dinv[None, :])
@@ -391,7 +393,8 @@ def test_q4q3_lattice_step_matches_jax():
     converged states agree."""
     mt, mj = tdata.get_mesh("cube01_hex"), jdata.get_mesh("cube01_hex")
     opt = dict(problem=1, order_v=4, order_e=3, ode_solver=7, cg_tol=1e-12)
-    ht, hj = THydro(mt, TOptions(**opt)), JHydro(mj, JOptions(**opt))
+    ht = THydro(mt, TOptions(**opt), device="cpu")
+    hj = JHydro(mj, JOptions(**opt))
     S = {k: np.asarray(v) for k, v in hj.S0.items()}
     St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
     dt_t, sj_t = ht.dt_estimate_full(St)
@@ -425,7 +428,7 @@ def test_f32_lattice_run_tracks_f64():
     for dtype in (torch.float64, torch.float32):
         h = THydro(tdata.get_mesh("cube01_hex"),
                    TOptions(problem=1, ode_solver=7, cg_tol=1e-7),
-                   dtype=dtype)
+                   dtype=dtype, device="cpu")
         runs[dtype] = driver.run(h, t_final=0.6, max_steps=4,
                                  vis_steps=10**6)
     e32, e64 = runs[torch.float32].e_norm, runs[torch.float64].e_norm

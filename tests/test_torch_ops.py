@@ -46,7 +46,7 @@ def _pair(dim, problem=1):
         mj = jmesh.uniform_refine(jdata.get_mesh(MESH[dim]))
         ht = THydro(mt, TOptions(problem=problem, cg_tol=1e-14,
                                  structured_el=False, lattice_ops=False,
-                                 precond="jacobi"))
+                                 precond="jacobi"), device="cpu")
         hj = JHydro(mj, JOptions(problem=problem, cg_tol=1e-14,
                                  structured_el=False, lattice_ops=False,
                                  precond="jacobi"))
@@ -296,7 +296,8 @@ def test_mass_apply_and_incidence_match_jax(dim):
 def test_h1_mass_diag_matches_apply(dim):
     mt = tdata.get_mesh(MESH[dim])
     ht = THydro(mt, TOptions(problem=1, structured_el=False,
-                             lattice_ops=False, precond="jacobi"))
+                             lattice_ops=False, precond="jacobi"),
+                device="cpu")
     gather = torch.as_tensor(ht.h1.gather, dtype=torch.long)
     I = torch.eye(ht.ndof, dtype=torch.float64)
     M = tmass.h1_mass_apply(I, gather, ht.ndof, ht.massD, ht.tables["H1B"],

@@ -83,7 +83,8 @@ def test_raster_maps_and_renumbering_match_jax(name, rs):
     coordinates and essential masks bit for bit; the static arrays built
     on them (t=0 data, Jacobi diagonal, S0) as in the gather path."""
     mt, mj = _meshes(name, rs)
-    ht, hj = THydro(mt, TOptions(problem=1)), JHydro(mj, JOptions(problem=1))
+    ht = THydro(mt, TOptions(problem=1), device="cpu")
+    hj = JHydro(mj, JOptions(problem=1))
     assert ht._sm is not None and hj._sm is not None
     np.testing.assert_array_equal(ht.mesh.elems, hj.mesh.elems)
     assert ht._sm.dims == hj._sm.dims and ht._sm.p == hj._sm.p
@@ -125,8 +126,8 @@ def test_fallback_to_gather_path_off_raster(dim):
     the default Hydro agrees with JAX's."""
     mt, mj = _perturbed(dim)
     assert tstruct.reorder_mesh_elements_to_raster(mt) is None
-    ht, hj = THydro(mt, TOptions(problem=1, cg_tol=1e-14)), \
-        JHydro(mj, JOptions(problem=1, cg_tol=1e-14))
+    ht = THydro(mt, TOptions(problem=1, cg_tol=1e-14), device="cpu")
+    hj = JHydro(mj, JOptions(problem=1, cg_tol=1e-14))
     assert ht._sm is None and ht._lat is None and ht._inc is not None
     assert hj._sm is None and hj._lat is None
     np.testing.assert_array_equal(ht.h1.gather, hj.h1.gather)
@@ -151,7 +152,8 @@ def test_structured_without_lattice_matches_jax(dim):
     name = {2: "rectangle01_quad", 3: "box01_hex"}[dim]
     mt, mj = _meshes(name, 1 if dim == 2 else 0)
     opt = dict(problem=1, cg_tol=1e-14, lattice_ops=False)
-    ht, hj = THydro(mt, TOptions(**opt)), JHydro(mj, JOptions(**opt))
+    ht = THydro(mt, TOptions(**opt), device="cpu")
+    hj = JHydro(mj, JOptions(**opt))
     assert ht._sm is not None and ht._lat is None and ht._inc is None
     rng = np.random.default_rng(2)
     S0 = {k: np.asarray(v) for k, v in hj.S0.items()}
