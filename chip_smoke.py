@@ -9,12 +9,14 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu)
    from this checkout, one nvcc per source in parallel;
 3. each kernel instance against its plain PyTorch version on the card, f64
-   and f32, with inverted and NaN points mixed in, with launch times: the
+   and f32, with inverted and NaN points mixed in, with launch times (warm,
+   and with a cold L2: a 128 MiB buffer written before each launch): the
    element layout on the flagship mesh's gather-path q-data, the q-lattice
    and packed layouts on its q-lattice (2,097,152 points); the Ozaki split
    bit for bit at the six stage operands of an Ozaki mass apply of the
-   flagship state (8 and 6 slices) and on a mixed-magnitude operand with
-   zero, NaN and Inf rows;
+   flagship state (8 and 6 slices), at the flat operands of the flagship's
+   L2 energy (NE, 8) and gather-path force (3 NE, 192) products, and on a
+   mixed-magnitude operand with zero, NaN and Inf rows;
 4. the reference's --checks goldens (3D and 2D Sedov) through the port's
    driver on the card, on the whole-lattice and on the gather path, and 3D
    Sedov through the Ozaki lattice path (at its gate, 3e-13);
@@ -35,8 +37,9 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
-card's peak for their type; `library_ms` is null, as no single PyTorch
-call computes any of these functions.
+card's peak for their type; `cold_ms` is its time with a cold L2, the one
+its share of the bound is read against; `library_ms` is null, as no single
+PyTorch call computes any of these functions.
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -47,7 +50,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -84,6 +86,11 @@ PEAK_FLOPS = {F64: 34e12, F32: 67e12}
 # csrc/qphys.cu (det and adjugate, EOS, two 3x3 eigen-solves with their
 # Jacobi sweeps, dt, stress): an estimate, not a measurement
 QPHYS_OPS_PER_POINT = 1000
+# beside it, what the card executes: static SASS instructions of the
+# q-lattice viscous instance (f64, f32), the IEEE division and square-root
+# sequences and their slow paths included, as phase 2 counts them in the
+# built library (`kernels.sass_instructions`; H100 80GB HBM3, 700 W)
+QPHYS_SASS_PER_POINT = {F64: 4038, F32: 3566}
 # layout -> (wrapper in ops/qphys, {dtype: the TPU kernel it replaces})
 LAYOUTS = {
     "element": ("physics_3d", {F64: "laghos_tpu/ops/pallas_df64.py:132",
@@ -144,6 +151,17 @@ def phase_build():
     for line in b.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[2 build] ptxas: {line.strip()}")
+    sass = kernels.sass_instructions(b.path)
+    for code, dt in (("d", F64), ("f", F32)):
+        n = [v for k, v in sass.items()
+             if f"qphys_kernelI{code}Li1ELb1ELb0E" in k]
+        if len(n) != 1:
+            raise AssertionError(f"no q-lattice viscous {dt} instance in "
+                                 f"the SASS of {b.path.name}")
+        log(f"[2 build] q-lattice viscous {str(dt)[6:]} instance: {n[0]} "
+            f"SASS instructions a point (QPHYS_SASS_PER_POINT "
+            f"{QPHYS_SASS_PER_POINT[dt]}) against {QPHYS_OPS_PER_POINT} "
+            "operations of the algorithm")
 
 
 # ------------------------------------------------------- launch counts --
@@ -273,22 +291,6 @@ def packed_inputs(h, lattice_args):
     return args, dict(h0=h.h0)
 
 
-def time_ms(fn, n=20):
-    """Median over n calls of fn's device time, CUDA events per call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def _max_err(k, p, what, dtype):
     nan_k, nan_p = torch.isnan(k), torch.isnan(p)
     if not torch.equal(nan_k, nan_p):
@@ -301,6 +303,7 @@ def compare(layout, inputs, dtype):
     """Kernel against plain version on the card for one layout and dtype;
     returns the kernels-line numbers."""
     from laghos_tpu_torch.ops import qphys
+    from laghos_tpu_torch.timing import device_ms
 
     wrapper = _wrapper(layout)
     plain = getattr(qphys, LAYOUTS[layout][0] + "_plain")
@@ -337,15 +340,19 @@ def compare(layout, inputs, dtype):
     if int(zp.sum()) < 8:
         raise AssertionError("injected inverted/NaN points did not reach "
                              "dt = 0")
-    ms = time_ms(lambda: wrapper(*args, **kw))
-    plain_ms = time_ms(lambda: plain(*args, **kw))
+    ms = device_ms(lambda: wrapper(*args, **kw))
+    cold_ms = device_ms(lambda: wrapper(*args, **kw), cold=True)
+    plain_ms = device_ms(lambda: plain(*args, **kw))
     b_ms, b_by = bound(_nbytes(args) + _nbytes(out_k),
                        QPHYS_OPS_PER_POINT * args[3].numel(), dtype)
-    log(f"[3 kernel] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(median of 20, N = {args[3].numel()}); bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    log(f"[3 kernel] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold "
+        f"L2, plain {plain_ms:.4f} ms (median of 20, N = "
+        f"{args[3].numel()}); bound {b_ms:.4f} ms ({b_by}; "
+        f"{QPHYS_OPS_PER_POINT} operations a point, the card runs "
+        f"~{QPHYS_SASS_PER_POINT[dtype]} SASS instructions a point), "
+        f"{100 * b_ms / cold_ms:.1f} % of it cold")
+    return dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def mass_stage_operands(h, u):
@@ -367,11 +374,11 @@ def mass_stage_operands(h, u):
     return out
 
 
-def _split_bitwise(A, S, what):
+def _split_bitwise(A, S, what, axis=1):
     from laghos_tpu_torch.ops import omm
 
-    k = omm.split_dyn(A, S, axis=1)
-    p = omm.split_dyn_plain(A, S, axis=1)
+    k = omm.split_dyn(A, S, axis=axis)
+    p = omm.split_dyn_plain(A, S, axis=axis)
     torch.cuda.synchronize()
     same = (torch.equal(k.cat, p.cat)
             and torch.equal(k.scale.view(torch.int64),
@@ -382,17 +389,41 @@ def _split_bitwise(A, S, what):
     return k
 
 
+def _time_split(A, what):
+    """Kernel (warm and cold L2) and plain times of the 8-slice split of A
+    over axis 1 (axis -1 for a 2D A), with its bound; logged."""
+    from laghos_tpu_torch.ops import omm
+    from laghos_tpu_torch.timing import device_ms
+
+    axis = 1 if A.dim() > 2 else -1
+    ms = device_ms(lambda: omm.split_dyn(A, 8, axis=axis))
+    cold_ms = device_ms(lambda: omm.split_dyn(A, 8, axis=axis), cold=True)
+    plain_ms = device_ms(lambda: omm.split_dyn_plain(A, 8, axis=axis))
+    d = omm.split_dyn(A, 8, axis=axis)
+    nbytes = _nbytes((A, d.cat, d.scale))
+    nops = (4 + 8 + 2) * A.numel()  # csrc/split.cu: max, scaling, digits
+    b_ms, b_by = bound(nbytes, nops, F64)
+    k = A.shape[axis]
+    log(f"[3 split] {what} {tuple(A.shape)} (k = {k}, {d.cat.shape[0]} "
+        f"rows): bitwise equal at S = 8 and 6; S = 8 kernel {ms:.4f} ms "
+        f"warm, {cold_ms:.4f} ms cold L2, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes} B), {100 * b_ms / cold_ms:.1f} % "
+        "of it cold")
+    return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms), nbytes, nops
+
+
 def phase_split(h):
     """The split kernel against its plain twin, bit for bit, at the six
     stage operands of an Ozaki mass apply of the flagship state (8 and 6
-    slices) and on a mixed-magnitude operand with zero, NaN and Inf rows;
-    times at 8 slices.  The kernels-line numbers are the sums over the six
-    stages: the splits of one 8-slice mass apply."""
-    from laghos_tpu_torch.ops import omm
-
+    slices), at the two flat (R2 = 1) operands of the flagship's
+    `omm.matmul` calls (the L2 energy's (NE, 8) and the gather-path
+    force's (3 NE, 192)), and on a mixed-magnitude operand with zero, NaN
+    and Inf rows; times at 8 slices, warm and with a cold L2.  The
+    kernels-line numbers are the sums over the six stages: the splits of
+    one 8-slice mass apply."""
     rng = np.random.default_rng(1)
     ops = mass_stage_operands(h, _perturbed_velocity(h, rng))
-    tot = dict(ms=0.0, plain_ms=0.0)
+    tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0)
     nbytes = nops = 0
     for i, A in enumerate(ops):
         for S in (8, 6):
@@ -400,19 +431,18 @@ def phase_split(h):
         mant, _ = torch.frexp(d.scale)
         if not bool((mant == 0.5).all()):
             raise AssertionError("split scales are not powers of two")
-        ms = time_ms(lambda: omm.split_dyn(A, 8, axis=1))
-        plain_ms = time_ms(lambda: omm.split_dyn_plain(A, 8, axis=1))
-        d = omm.split_dyn(A, 8, axis=1)
-        b_ms, b_by = bound(_nbytes((A, d.cat, d.scale)),
-                           (3 * 8 + 2) * A.numel(), F64)
-        log(f"[3 split] stage {i} {tuple(A.shape)} (k = {A.shape[1]}, "
-            f"{d.cat.shape[0]} rows): bitwise equal at S = 8 and 6; S = 8 "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {_nbytes((A, d.cat, d.scale))} B)")
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        nbytes += _nbytes((A, d.cat, d.scale))
-        nops += (3 * 8 + 2) * A.numel()
+        t, nb, no = _time_split(A, f"stage {i}")
+        for key in tot:
+            tot[key] += t[key]
+        nbytes += nb
+        nops += no
+    NE = h.NE
+    for shape, what in (((NE, 8), "L2 energy operand"),
+                        ((3 * NE, 192), "gather-path force operand")):
+        A = torch.tensor(rng.standard_normal(shape), device=h.device)
+        for S in (8, 6):
+            _split_bitwise(A, S, what, axis=-1)
+        _time_split(A, what)
     A = torch.tensor(rng.standard_normal((3, 17, 33)) * np.exp2(
         rng.integers(-30, 30, (3, 17, 33))), device=h.device)
     A[1, :, 5] = 0.0
@@ -427,8 +457,9 @@ def phase_split(h):
         f"bitwise equal at S = 8, 6, 4; NaN-scale rows {nan_rows}")
     b_ms, b_by = bound(nbytes, nops, F64)
     log(f"[3 split] one 8-slice mass apply's six splits: kernel "
-        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}, {nbytes} B)")
+        f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold L2, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes} "
+        f"B), {100 * b_ms / tot['cold_ms']:.1f} % of it cold")
     return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, **tot)
 

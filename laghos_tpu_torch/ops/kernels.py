@@ -22,6 +22,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -104,6 +105,26 @@ def build() -> Build:
     log.write_text(out)
     os.replace(tmp, so)       # atomic: concurrent builders agree
     return Build(so, out, seconds)
+
+
+def sass_instructions(path) -> dict:
+    """{mangled kernel name: static SASS instructions, NOPs left out} of the
+    library at `path`, read with `cuobjdump -sass` from nvcc's toolkit."""
+    cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and cur is not None and not m.group(1).startswith("NOP"):
+            out[cur] += 1
+    return out
 
 
 # memory layouts of csrc/qphys.cu (its `Layout` enum)

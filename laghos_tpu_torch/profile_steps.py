@@ -9,8 +9,11 @@ steps (`step_ms`, host wall time ending in a device sync), then runs
 `--repeats` windows of 2 steps under `torch.profiler`.  Each window gives
 one JSON line: the device's busy time per step (the union of the traced
 device intervals), busy share of the window's wall time, device events
-per step, and the ops and kernels with the most device time.  The lines
-go to stdout and, with `--out`, to FILE.
+per step, the ops and kernels with the most device time, and the device
+time and launches per step of each hand-written kernel (`csrc/*.cu`,
+found by its device-side name: the ctypes launches are no torch ops, so
+`key_averages()` does not list them).  The lines go to stdout and, with
+`--out`, to FILE.
 """
 
 from __future__ import annotations
@@ -32,6 +35,25 @@ CASES = {
     "ns4_lattice_kron": (3, 4, 3, dict(precond="kron")),
     "ns2_lattice_ozaki": (4, 2, 1, dict(precond="jacobi", ozaki=True)),
 }
+
+
+# device-side names of the hand-written kernels (csrc/split.cu, csrc/qphys.cu)
+HAND_KERNELS = ("split_kernel", "qphys_kernel")
+
+
+def hand_kernel_times(events, steps):
+    """{kernel: {ms_per_step, launches_per_step}} of each of HAND_KERNELS
+    over the profiler's device events of `steps` steps."""
+    acc = {k: [0.0, 0] for k in HAND_KERNELS}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in HAND_KERNELS:
+            if k in e.name:
+                acc[k][0] += e.time_range.end - e.time_range.start
+                acc[k][1] += 1
+    return {k: dict(ms_per_step=us / steps / 1e3, launches_per_step=n / steps)
+            for k, (us, n) in acc.items()}
 
 
 def _busy(prof):
@@ -111,6 +133,7 @@ def profile_case(dev, rs, order_v, order_e, opt, *, warm=2, timed=5,
             busy_ms_per_step=busy_us / window / 1e3,
             busy_share=busy_us / 1e6 / wall,
             device_events_per_step=n / window,
+            hand_kernels=hand_kernel_times(prof.events(), window),
             top=[(k[:90], t / window / 1e3, c // window)
                  for k, t, c in top]))
     return out

@@ -13,6 +13,7 @@ fences (`block`, the analog of LAGHOS_DEVICE_SYNC), and the FOM rates:
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 
 import torch
@@ -101,3 +102,33 @@ def print_timing(tim: TimingData, *, steps: int, H1_dofs: int, L2_dofs: int,
             f"| {FOM2:7.3g}| {T2:5.3g}| {FOM3:7.3g}| {T3:5.3g}"
             f"| {FOM:7.3g}| {TT:5.3g}|")
     return result
+
+
+_FLUSH = []
+
+
+def device_ms(fn, n=20, cold=False):
+    """Median device time in ms of n calls of fn on the card, each between
+    two CUDA events.  Before each call the card is kept busy for ~1 ms
+    (`torch.cuda._sleep`) while the host queues it, so a call that costs
+    the host longer than the card to launch is timed by its device work,
+    not its launch.  cold: before each call, outside the events, write a
+    128 MiB buffer (2.7x the 50 MB L2), so the call finds its inputs in
+    device memory."""
+    if cold and not _FLUSH:
+        _FLUSH.append(torch.empty(2**25, dtype=torch.float32, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        if cold:
+            _FLUSH[0].fill_(1.0)
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)

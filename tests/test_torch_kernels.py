@@ -48,13 +48,99 @@ def qdata():
                e_q.contiguous(), h.rho0DetJ0w_t, h.gamma_t, t["Winv"]]
 
 
+# Point counts of the ragged-edge cases: (NE, NQ) with N = NE * NQ in
+# {1, 127, 129 (one tile of 128 points + 1), 2,097,157}; None is the
+# fixture's own q-data.
+SIZES = [None, (1, 1), (1, 127), (3, 43), (39569, 53)]
+
+
+def _cycle(A, n):
+    """The first n points of A (..., N0) repeated along its last axis."""
+    idx = torch.arange(n, device=A.device) % A.shape[-1]
+    return A[..., idx].contiguous()
+
+
+def _sized(inputs, layout, size, dtype):
+    """Inputs of NE * NQ points cut from the fixture's (`layout`'s
+    argument order), cycling its points; gamma per element and 1/w (or W)
+    per q-point cycle the fixture's tables."""
+    NE, NQ = size
+    n = NE * NQ
+    J9, dV9, J0i9, e_q, rw, gamma, winv = [a.to(dtype) for a in inputs]
+    if layout == "lattice":
+        flat = [_cycle(a.reshape(9, -1), n) for a in (J9, dV9, J0i9)]
+        pts = [_cycle(a.reshape(-1), n) for a in (e_q, rw, gamma, winv)]
+        return flat + pts
+    fields = [_cycle(a.reshape(9, -1), n).reshape(9, NE, NQ)
+              for a in (J9, dV9, J0i9)]
+    pts = [_cycle(a.reshape(-1), n).reshape(NE, NQ) for a in (e_q, rw)]
+    if layout == "packed":
+        fields = [a.permute(1, 2, 0).reshape(NE, NQ, 3, 3).contiguous()
+                  for a in fields]
+    return fields + pts + [_cycle(gamma, NE), _cycle(winv, NQ)]
+
+
+def _padded_launch(layout, args, NQ, kw, pad=1031):
+    """Launch the kernel directly into outputs that are views of larger
+    buffers holding a sentinel, synchronise, and check that nothing past
+    the outputs was written.  Returns (sJit, dtq, visc) views."""
+    from laghos_tpu_torch.ops import kernels
+
+    e_q = args[3]
+    n, dt, dev = e_q.numel(), e_q.dtype, e_q.device
+    bufs = [torch.full((m + pad,), 7.25, dtype=dt, device=dev)
+            for m in (9 * n, n, n)]
+    shape9 = (9, n) if layout != "packed" else (n, 9)
+    sJit, dtq, visc = (bufs[0][:9 * n].view(shape9), bufs[1][:n],
+                       bufs[2][:n])
+    code = {"element": kernels.ELEMENT, "lattice": kernels.LATTICE,
+            "packed": kernels.PACKED}[layout]
+    kernels.launch_qphys(code, *args, sJit, dtq, visc, NQ=NQ, **kw)
+    torch.cuda.synchronize()
+    for b, m in zip(bufs, (9 * n, n, n)):
+        assert bool((b[m:] == 7.25).all()), "the kernel wrote out of bounds"
+    return sJit, dtq, visc
+
+
+def _sized_case(layout, inputs, size, dtype, tol, visc, vort, h0):
+    """A ragged-size case: kernel (padded launch) against the plain twin."""
+    args = _sized(inputs, layout, size, dtype)
+    kw = dict(h1order=2.0, cfl=0.5, use_viscosity=visc, use_vorticity=vort)
+    launch_kw = dict(h0=h0, **kw)
+    NE, NQ = size
+    if layout == "lattice":
+        s_k, d_k, _ = _padded_launch(layout, args, 1, launch_kw)
+        s_p, d_p = qphys.physics_3d_lattice_plain(*args, h0=h0, **kw)
+    elif layout == "element":
+        s_k, d_k, _ = _padded_launch(layout, args, NQ, launch_kw)
+        s_p, d_p = qphys.physics_3d_plain(*args, h0_e=h0, **kw)
+        s_p, d_p = s_p.reshape(9, -1), d_p.reshape(-1)
+    else:
+        s_k, d_k, v_k = _padded_launch(layout, args, NQ, launch_kw)
+        s_p, d_p, v_p = qphys.physics_3d_packed_plain(*args, h0=h0, **kw)
+        s_p, d_p = s_p.reshape(-1, 9), d_p.reshape(-1)
+        _agree_visc(v_k, v_p.reshape(-1), tol)
+    _agree(s_k, d_k, s_p, d_p, tol, zero_dt=None)
+
+
+def _agree_visc(v_k, v_p, tol):
+    assert torch.equal(torch.isnan(v_k), torch.isnan(v_p))
+    fin = ~torch.isnan(v_p)
+    scale = max(float(v_p[fin].abs().max()), 1e-300)
+    assert float((v_k[fin] - v_p[fin]).abs().max()) <= tol * scale
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("visc,vort", [(True, False), (True, True),
                                        (False, False)])
-def test_qphys_kernel_matches_plain(qdata, dtype, tol, visc, vort):
+def test_qphys_kernel_matches_plain(qdata, dtype, tol, visc, vort, size):
     h, inputs = qdata
+    if size is not None:
+        _sized_case("element", inputs, size, dtype, tol, visc, vort, h.h0)
+        return
     args = [a.to(dtype) for a in inputs]
     kw = dict(h0_e=h.h0, h1order=2.0, cfl=0.5, use_viscosity=visc,
               use_vorticity=vort)
@@ -112,26 +198,32 @@ def lattice_qdata():
                e_q.contiguous(), lat["rw"], lat["gam"], lat["winv"]]
 
 
-def _agree(s_k, d_k, s_p, d_p, tol):
+def _agree(s_k, d_k, s_p, d_p, tol, zero_dt=4):
     assert torch.equal(torch.isnan(s_k), torch.isnan(s_p))
     assert torch.equal(d_k == 0, d_p == 0)
-    assert int((d_p == 0).sum()) == 4
+    if zero_dt is not None:
+        assert int((d_p == 0).sum()) == zero_dt
     fin = ~torch.isnan(s_p)
     scale = float(s_p[fin].abs().max())
     assert float((s_k[fin] - s_p[fin]).abs().max()) <= tol * scale
     good = d_p > 0
-    dmin = float(d_p[good].min())
-    assert abs(float(d_k[good].min()) - dmin) <= tol * dmin
+    if bool(good.any()):
+        dmin = float(d_p[good].min())
+        assert abs(float(d_k[good].min()) - dmin) <= tol * dmin
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("visc,vort", [(True, False), (True, True),
                                        (False, False)])
 def test_qphys_lattice_kernel_matches_plain(lattice_qdata, dtype, tol, visc,
-                                            vort):
+                                            vort, size):
     h, inputs = lattice_qdata
+    if size is not None:
+        _sized_case("lattice", inputs, size, dtype, tol, visc, vort, h.h0)
+        return
     args = [a.to(dtype) for a in inputs]
     kw = dict(h0=h.h0, h1order=2.0, cfl=0.5, use_viscosity=visc,
               use_vorticity=vort)
@@ -148,8 +240,15 @@ def test_qphys_lattice_kernel_matches_plain(lattice_qdata, dtype, tol, visc,
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("visc,vort", [(True, False), (True, True),
                                        (False, False)])
-def test_qphys_packed_kernel_matches_plain(qdata, dtype, tol, visc, vort):
+@pytest.mark.parametrize("size", SIZES)
+def test_qphys_packed_kernel_matches_plain(qdata, dtype, tol, visc, vort,
+                                           size):
     h, inputs = qdata
+    if size is not None:
+        packed_inputs = inputs[:6] + [h.tables["W"]]
+        _sized_case("packed", packed_inputs, size, dtype, tol, visc, vort,
+                    h.h0)
+        return
     J9, dV9, J0i9, e_q, rw, gamma, winv = [a.to(dtype) for a in inputs]
     NE, NQ = e_q.shape
 
@@ -166,10 +265,7 @@ def test_qphys_packed_kernel_matches_plain(qdata, dtype, tol, visc, vort):
     assert qphys.physics_3d_packed.launches == before + 1
     s_p, d_p, v_p = qphys.physics_3d_packed_plain(*args, **kw)
     _agree(s_k, d_k, s_p, d_p, tol)
-    assert torch.equal(torch.isnan(v_k), torch.isnan(v_p))
-    fin = ~torch.isnan(v_p)
-    scale = max(float(v_p[fin].abs().max()), 1e-300)
-    assert float((v_k[fin] - v_p[fin]).abs().max()) <= tol * scale
+    _agree_visc(v_k, v_p, tol)
 
 
 def _card():
@@ -190,12 +286,49 @@ def _split_operand(seed=0):
     return torch.tensor(A)
 
 
+def _split_edges(R1, k, R2, seed=0):
+    """(R1, k, R2) f64 of mixed magnitudes whose rows along axis 1 include,
+    as far as there are rows: all zeros, subnormals, -0.0, values near
+    2^1000 and near 2^-1000, a NaN and an Inf."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((R1, k, R2)) * np.exp2(
+        rng.integers(-30, 30, (R1, k, R2)))
+    M = R1 * R2
+    special = [
+        lambda r: np.zeros(k),
+        lambda r: r * 2.0 ** -1060,                # subnormal
+        lambda r: np.full(k, -0.0),
+        lambda r: r * 2.0 ** 1000,
+        lambda r: r * 2.0 ** -1000,
+        lambda r: np.where(np.arange(k) == k // 2, np.nan, r),
+        lambda r: np.where(np.arange(k) == 0, np.inf, r),
+    ]
+    rows = np.linspace(0, M - 1, len(special)).astype(int)
+    for f, row in zip(special, rows):
+        r1, r2 = divmod(int(row), R2)
+        A[r1, :, r2] = f(rng.standard_normal(k))
+    return torch.tensor(A)
+
+
+# (operand, axis): the mixed (3, 17, 33) operand over each axis, then
+# (R1, k, R2) edge operands split over axis 1 (the tiling's edges: k below,
+# at and above a multiple of 8, the longest row a tile takes whole (512)
+# and the next, in two chunks, and k = 1,536 in three; R2 = 1, the flat
+# loads, and R2 around a tile of 32 rows and the H1 lattice's 65^2)
+SPLIT_CASES = [("mixed", a) for a in (0, 1, 2)] + [
+    ((R1, k, R2), 1) for R1 in (1, 3)
+    for k in (1, 7, 8, 9, 65, 128, 129, 512, 513, 1536)
+    for R2 in (1, 31, 32, 33, 4225)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis", [0, 1, 2])
-@pytest.mark.parametrize("S", [8, 6, 4])
-def test_split_kernel_matches_plain_bitwise(axis, S):
+@pytest.mark.parametrize("operand,axis", SPLIT_CASES,
+                         ids=[f"{o}-{a}" for o, a in SPLIT_CASES])
+@pytest.mark.parametrize("S", [8, 6, 4, 1])
+def test_split_kernel_matches_plain_bitwise(operand, axis, S):
     dev = _card()
-    A = _split_operand().to(dev)
+    mixed = operand == "mixed"
+    A = (_split_operand() if mixed else _split_edges(*operand)).to(dev)
     before = omm.split_dyn.launches
     k = omm.split_dyn(A, S, axis)
     torch.cuda.synchronize()
@@ -203,9 +336,12 @@ def test_split_kernel_matches_plain_bitwise(axis, S):
     p = omm.split_dyn_plain(A, S, axis)
     assert torch.equal(k.cat, p.cat)
     assert torch.equal(k.scale.view(torch.int64), p.scale.view(torch.int64))
-    assert int(torch.isnan(k.scale).sum()) > 0
-    c = omm.split_dyn_plain(A.cpu(), S, axis)
-    assert torch.equal(k.cat.cpu(), c.cat)
+    if mixed:
+        assert int(torch.isnan(k.scale).sum()) > 0
+        c = omm.split_dyn_plain(A.cpu(), S, axis)
+        assert torch.equal(k.cat.cpu(), c.cat)
+    elif operand[0] * operand[2] >= 7:
+        assert int(torch.isnan(k.scale).sum()) == 2
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ record for the timed steps and one per profiled window."""
 
 import json
 import math
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -28,6 +29,9 @@ def test_profile_case_rs0(name):
         assert w["repeat"] == r and w["wall_ms_per_step"] > 0
         # no device on the CPU: nothing traced as device time
         assert w["busy_ms_per_step"] == 0 and w["device_events_per_step"] == 0
+        assert set(w["hand_kernels"]) == set(profile_steps.HAND_KERNELS)
+        assert all(v == dict(ms_per_step=0.0, launches_per_step=0.0)
+                   for v in w["hand_kernels"].values())
 
 
 def test_profile_main_writes_lines(tmp_path, capsys, monkeypatch):
@@ -39,3 +43,31 @@ def test_profile_main_writes_lines(tmp_path, capsys, monkeypatch):
     lines = [json.loads(s) for s in out.read_text().splitlines()]
     assert [ln["case"] for ln in lines] == ["ns2_lattice_kron"] * 2
     assert capsys.readouterr().out.count("ns2_lattice_kron") == 2
+
+
+def test_hand_kernel_times_from_stub_events():
+    """Device time and launches per step of the hand-written kernels, by
+    device-side name; host events and other kernels are not counted."""
+    cuda, cpu = (torch.autograd.DeviceType.CUDA,
+                 torch.autograd.DeviceType.CPU)
+
+    def ev(name, start, end, dev=cuda):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    events = [
+        ev("void (anonymous namespace)::split_kernel<8>(double const*)",
+           0.0, 30.0),
+        ev("void (anonymous namespace)::split_kernel<6>(double const*)",
+           40.0, 50.0),
+        ev("void (anonymous namespace)::qphys_kernel<double, 1, true, "
+           "false>(Args<double>)", 100.0, 400.0),
+        ev("split_kernel", 0.0, 1000.0, dev=cpu),        # host side
+        ev("sm80_xmma_gemm_f64f64", 500.0, 900.0),       # another kernel
+    ]
+    got = profile_steps.hand_kernel_times(events, steps=2)
+    assert got["split_kernel"] == dict(ms_per_step=0.02,
+                                       launches_per_step=1.0)
+    assert got["qphys_kernel"] == dict(ms_per_step=0.15,
+                                       launches_per_step=0.5)

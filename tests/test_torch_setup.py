@@ -132,3 +132,36 @@ def test_port_imports_no_jax():
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "laghos_tpu")]
     assert not bad, bad
+
+
+def test_sass_instructions_counts_each_kernel(monkeypatch, tmp_path):
+    """`kernels.sass_instructions` reads cuobjdump's listing: instructions
+    per kernel, predicated ones included, NOPs and headers left out."""
+    from laghos_tpu_torch.ops import kernels
+
+    name = ("_ZN40_GLOBAL__N__b1d8e411_8_qphys_cu_9b1f917612qphys_kernelIdLi1"
+            "ELb1ELb0EEEvNS_4ArgsIT_EE")
+    listing = f"""
+	code for sm_90a
+		Function : {name}
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+        /*0010*/                   MUFU.RCP R3, R2 ;                 /* 0x0000000200037308 */
+        /*0020*/              @!P0 CALL.REL.NOINC 0x1230 ;          /* 0x0000001000008944 */
+        /*0030*/                   DFMA R4, R2, R4, R6 ;             /* 0x000000040204722b */
+        /*0040*/                   NOP ;                             /* 0x0000000000007918 */
+		Function : _ZN12_GLOBAL__N_112split_kernelILi8EEEvPKdPaPdlilii
+        /*0000*/                   EXIT ;                            /* 0x000000000000794d */
+"""
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return type("Done", (), {"stdout": listing})
+
+    monkeypatch.setattr(kernels.subprocess, "run", run)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    got = kernels.sass_instructions(tmp_path / "lib.so")
+    assert got == {name: 4,
+                   "_ZN12_GLOBAL__N_112split_kernelILi8EEEvPKdPaPdlilii": 1}
+    assert seen[0][:2] == ["/usr/local/cuda/bin/cuobjdump", "-sass"]
