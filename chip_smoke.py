@@ -33,7 +33,22 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    counted runs, against the q-update of the final state of the f64 and
    the f32 lattice runs;
 6. bitwise repeatability of two runs on the lattice path, two on the
-   gather path and two on the Ozaki lattice path.
+   gather path and two on the Ozaki lattice path, and of the -fa flagship
+   (run again after phase 8);
+7. BASELINE rows 5 (1D, -fa), 1 (p0, with its velocity error norms) and 8
+   (p4, RK2Avg) in full through the CLI (`laghos_tpu_torch/golden.py`), to
+   the golden gates, with their seconds;
+8. the flagship under -fa (full assembly: the coupled CG through the
+   assembled sparse H1 mass, the element-layout q-point kernel) against
+   the gather path under -pa in the same call, with the CSR's size, build
+   time and memory, and its product (one CSR SpMV per component) checked
+   for bitwise repeatability beside the single SpMM with the (ndof, 3)
+   block, which is timed and checked too;
+9. checkpoint and restore: 3D Sedov rs3, 5 steps with --checkpoint, then
+   --restore and 5 more, bit for bit the uninterrupted 10 steps;
+10. the I/O flags on a small card run: -visit -print -k (VTU, PVD, NPZ
+   parsed and counted), -mb (the card's peak), -err (a finite density
+   error), --profile (a trace with device kernels).
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -70,6 +85,18 @@ NS4_OZ = NS4 + ["--ozaki"]
 FLAGSHIP_F32 = ["-p", "1", "-dim", "3", "-rs", "4", "-ok", "2", "-ot", "1",
                 "-s", "7", "-cgt", "2e-7", "-ms", "3", "--dtype", "f32",
                 "-vs", "5", "-d", "cuda"]
+# the flagship under full assembly (-fa): the gather-path q-update and
+# force, the coupled CG through the assembled sparse H1 mass
+FLAGSHIP_FA = FLAGSHIP + ["-fa"]
+FLAGSHIP_STEPS = 21        # accepted steps of the flagship runs (-ms 20)
+# BASELINE rows run in full on the card (laghos_tpu_torch/golden.py)
+GOLDEN_ROWS = (5, 1, 8)
+# 3D Sedov at rs3 for the checkpoint phase: 10 steps, saved at step 5
+CKPT = ["-p", "1", "-dim", "3", "-rs", "3", "-s", "7", "-cgt", "1e-11",
+        "-vs", "5", "-d", "cuda"]
+# a small card run for the I/O flags of phase 10
+IO_RUN = ["-p", "1", "-dim", "3", "-rs", "1", "-ms", "4", "-vs", "5", "-mb",
+          "-err", "-d", "cuda"]
 # Options of the gather path (the default Options run the lattice path on
 # these Cartesian meshes)
 GATHER = dict(structured_el=False, lattice_ops=False, precond="jacobi")
@@ -791,7 +818,10 @@ def phase_flagship(dev):
 
 
 # ------------------------------------------------------------ phase 6 --
-def phase_repeat(dev):
+def phase_repeat(dev, fa_res):
+    """Two runs of each configuration, final states bit for bit; the -fa
+    flagship again, against phase 8's run.  Returns the element kernel
+    launches of the -fa run."""
     from laghos_tpu_torch import driver
     from laghos_tpu_torch.fem import mesh as fmesh
     from laghos_tpu_torch.hydro import Hydro, Options
@@ -820,6 +850,187 @@ def phase_repeat(dev):
             raise AssertionError(f"two {path}-path rs{rs} runs differ")
         log(f"[6 repeat] two 3D Sedov rs{rs} {path}-path runs "
             f"({finals[0].steps} steps): final states bitwise equal")
+    run, counts = fa_run(FLAGSHIP_FA, "fa repeat")
+    same = all(torch.equal(run.result.S[k], fa_res.S[k]) for k in fa_res.S)
+    log(f"[6 repeat] the -fa flagship ({run.result.steps} steps) again: "
+        f"final state bitwise equal to phase 8's: {same}")
+    if not same:
+        raise AssertionError("two -fa flagship runs differ")
+    return counts["element"]
+
+
+# ------------------------------------------------------------ phase 7 --
+def phase_golden_rows():
+    """BASELINE rows 5 (1D -fa), 1 (p0, with its velocity error norms)
+    and 8 (p4 Gresho, RK2Avg) in full through the CLI on the card, to the
+    golden gates (exact steps, printed dt, |e| at 1e-9)."""
+    from laghos_tpu_torch import golden
+
+    for row in GOLDEN_ROWS:
+        torch.cuda.synchronize()
+        reset_counts()
+        r = golden.run_row(row, "cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"[7 golden] {golden.line(r)}; hand-kernel launches {counts}")
+        if not r["ok"]:
+            raise AssertionError(f"BASELINE row {row} failed on the card")
+        if row == 1:
+            norms = [ln for ln in r["output"].splitlines()
+                     if ln.startswith("L_")]
+            log(f"[7 golden] row 1 velocity error norms: {norms}")
+            if len(norms) != 3 or not all(
+                    math.isfinite(float(ln.split(":")[1])) for ln in norms):
+                raise AssertionError("row 1 printed no velocity norms")
+
+
+def fa_run(argv, tag):
+    """One -fa drive of the CLI; logs its figures and returns (run,
+    counts)."""
+    run, counts, wall, out = drive(argv)
+    res, h = run.result, run.hydro
+    if h.p_assembly or h._h1_csr is None or h._lat is not None:
+        raise AssertionError(f"{tag}: the CLI did not take the FA path")
+    step_ms = 1e3 * res.timings["total"] / res.steps
+    drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
+    peak = torch.cuda.max_memory_allocated()
+    A = h._h1_csr
+    nbytes = _nbytes((A.crow_indices(), A.col_indices(), A.values()))
+    p = f"[8 {tag}]"
+    log(f"{p} NE {h.NE}, H1 dofs {h.ndof * 3}; scalar mass CSR "
+        f"{A.values().numel()} nonzeros, {nbytes} B (int32 indices); FA "
+        f"setup (element matrices, CSR coalescing, L2 inverses) "
+        f"{h.fa_setup_seconds:.3f} s of setup {run.setup_seconds:.3f} s")
+    t = res.timing_data.t
+    log(f"{p} {res.steps} steps, step_ms {step_ms:.3f} (timed run, fences "
+        f"per phase), wall {wall:.3f} s; phase seconds "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f"; FOM {run.fom['FOM']:.6g}, FOM1 {run.fom['FOM1']:.6g}")
+    log(f"{p} CG-H1 {res.h1_iters} coupled iterations "
+        f"({res.h1_iters / (2 * res.steps):.2f} per solve of all 3 "
+        f"components); final |e| {res.e_norm!r}, energy drift {drift:.3e}; "
+        f"peak device memory {peak / 2**30:.3f} GiB; element kernel "
+        f"launches {counts['element']} == q-updates {h.qupdate_calls}")
+    if not drift <= 1e-12:
+        raise AssertionError(f"{tag}: RK2Avg energy drift {drift:.3e} > "
+                             "1e-12")
+    _only(counts, "element", h.qupdate_calls, tag)
+    return run, counts
+
+
+def csr_check(h):
+    """The FA mass product on the flagship CSR: csr_apply (one SpMV per
+    component, the port's) against one SpMM with the (ndof, 3) block,
+    each applied 50 times to the final velocity: bitwise repeatability and
+    device times."""
+    from laghos_tpu_torch.ops import assemble as aop
+    from laghos_tpu_torch.timing import device_ms
+
+    A, u = h._h1_csr, h.S0["v"] + 1.0
+    out = {}
+    for name, fn in (("spmv x3", lambda: aop.csr_apply(A, u)),
+                     ("spmm", lambda: (A @ u.T).T)):
+        y = fn().clone()
+        same = sum(torch.equal(fn(), y) for _ in range(50))
+        ms = device_ms(fn)
+        out[name] = (same, ms, y)
+        log(f"[8 fa] CSR product {name}: {same} of 50 applies bitwise "
+            f"equal to the first, {ms:.4f} ms")
+    diff = float((out["spmm"][2] - out["spmv x3"][2]).abs().max()
+                 / out["spmv x3"][2].abs().max())
+    log(f"[8 fa] spmm vs spmv x3: rel {diff:.3e}")
+    if out["spmv x3"][0] != 50:
+        raise AssertionError("the FA mass product does not repeat")
+
+
+def phase_fa(dev):
+    """The flagship under -fa against the gather path under -pa (21 steps
+    each, the same call): |e| within 1e-10, energy drift <= 1e-12, the
+    element-layout f64 kernel launched once per q-update."""
+    run, counts = fa_run(FLAGSHIP_FA, "fa")
+    res = run.result
+    if res.steps != FLAGSHIP_STEPS:
+        raise AssertionError(f"fa: {res.steps} steps")
+    csr_check(run.hydro)
+    del run
+    h, ref, setup, cg = gather_run(dev, F64, FLAGSHIP_STEPS, 1e-11)
+    step_ms = 1e3 * ref.timings["total"] / ref.steps
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(res.e_norm - ref.e_norm) / ref.e_norm
+    log(f"[8 fa] -pa gather run, same call: setup {setup:.3f} s, "
+        f"{ref.steps} steps, step_ms {step_ms:.3f} (timed run, fences per "
+        f"phase), CG-H1 {ref.h1_iters} "
+        f"({ref.h1_iters / (2 * 3 * ref.steps):.2f} per component solve), "
+        f"peak device memory "
+        f"{peak / 2**30:.3f} GiB, |e| {ref.e_norm!r}")
+    log(f"[8 fa] |e| after {res.steps} steps, -fa vs -pa gather: rel "
+        f"{rel:.3e} (limit 1e-10)")
+    if not rel <= 1e-10:
+        raise AssertionError("fa: |e| departs from the -pa gather run")
+    del h, ref
+    torch.cuda.empty_cache()
+    return res, counts["element"] + cg["element"]
+
+
+def phase_checkpoint():
+    """10 steps of 3D Sedov at rs3 uninterrupted, against 5 steps with
+    --checkpoint then --restore and 5 more: bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/ck.npz"
+        full, c1, _, _ = drive(CKPT + ["-ms", "9"])
+        first, c2, _, _ = drive(CKPT + ["-ms", "4", "--checkpoint", ck])
+        resumed, c3, _, _ = drive(CKPT + ["-ms", "4", "--restore", ck])
+    a, b = full.result, resumed.result
+    same = all(torch.equal(a.S[k], b.S[k]) for k in a.S)
+    log(f"[9 checkpoint] rs3: uninterrupted {a.steps} steps, |e| "
+        f"{a.e_norm!r}; {first.result.steps} steps + restore at step "
+        f"{first.result.steps + 1} + {b.steps - first.result.steps} steps, "
+        f"|e| {b.e_norm!r}; (t, dt) {(a.t, a.dt)} vs {(b.t, b.dt)}; final "
+        f"states bitwise equal: {same}")
+    if not (same and a.steps == b.steps == 10 and (a.t, a.dt) == (b.t, b.dt)):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    return sum(c["lattice"] for c in (c1, c2, c3))
+
+
+def phase_io():
+    """-visit -print -k, -mb, -err and --profile on a small card run."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = f"{tmp}/out/sedov"
+        run, counts, wall, out = drive(
+            IO_RUN + ["-visit", "-print", "-k", base, "--profile",
+                      f"{tmp}/prof"])
+        h, n = run.hydro, run.result.steps
+        txt = open(f"{base}_{n:06d}.vtu").read()
+        npts, ncells = map(int, re.search(
+            r'NumberOfPoints="(\d+)" NumberOfCells="(\d+)"', txt).groups())
+        want = (h.NE * h.nd1**3, h.NE * (h.nd1 - 1)**3)
+        rho = re.search(r'Name="density" format="ascii">\n(.*?)</DataArray>',
+                        txt, re.S).group(1).split()
+        pvd = open(f"{base}.pvd").read().count("<DataSet")
+        z = np.load(f"{base}_{n:06d}.npz")
+        npz_ok = np.array_equal(z["e"], run.result.S["e"].cpu().numpy())
+        trace = json.load(open(f"{tmp}/prof/trace.json"))
+    events = trace["traceEvents"]
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    mem = [ln for ln in out.splitlines() if "peak" in ln and "MB" in ln]
+    err = re.search(r"Density L2 error: (\S+)", out)
+    log(f"[10 io] {n} steps in {wall:.3f} s; VTU points/cells {(npts, ncells)}"
+        f" (want {want}), density values {len(rho)}, PVD entries {pvd}, NPZ "
+        f"state equal {npz_ok}; -mb: {mem}; -err: "
+        f"{err.group(0) if err else None}; profiler trace {len(events)} "
+        f"events, {kernels} device kernels; lattice kernel launches "
+        f"{counts['lattice']}")
+    if not ((npts, ncells) == want and len(rho) == npts and pvd == 2
+            and npz_ok and mem and err and math.isfinite(
+                float(err.group(1))) and kernels > 0):
+        raise AssertionError("the I/O flags' outputs are missing or wrong")
+    return counts["lattice"]
 
 
 def main():
@@ -829,7 +1040,11 @@ def main():
     timed = phase_kernel(dev)
     phase_goldens(dev)
     launches = phase_flagship(dev)
-    phase_repeat(dev)
+    phase_golden_rows()
+    fa_res, n_fa = phase_fa(dev)
+    launches[("element", F64)] += n_fa
+    launches[("lattice", F64)] += phase_checkpoint() + phase_io()
+    launches[("element", F64)] += phase_repeat(dev, fa_res)
     # launches come from the main-path runs only; the packed layout is on
     # none of them
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",

@@ -3,8 +3,8 @@
 The reference ships small MFEM-format meshes (data/*.mesh); the regular
 tensor-product ones are built here in code, so the package needs no data
 files.  Boundary attributes follow the fixed-x/y/z = 1/2/3 convention the
-files encode.  Reading MFEM/NetGen mesh files is not part of this package
-yet (ROADMAP A7).
+files encode.  `get_mesh` also reads an existing MFEM v1.0 or NetGen
+areamesh2 file given by path.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ def _shifted(m: fmesh.Mesh, offset) -> fmesh.Mesh:
 
 
 def _builtin(name: str):
+    if name == "segment01":
+        return fmesh.cartesian(1, (2,), (1.0,))
     if name == "square01_quad":
         return fmesh.cartesian(2, (2, 2), (1.0, 1.0))
     if name == "cube01_hex":
@@ -45,15 +47,21 @@ def _builtin(name: str):
     return None
 
 
-def get_mesh(name: str) -> fmesh.Mesh:
-    """A built-in 2D/3D geometry by name (a trailing `.mesh` and any
-    directory part are ignored)."""
-    base = os.path.basename(name)
+def get_mesh(name_or_path: str) -> fmesh.Mesh:
+    """The mesh file at `name_or_path` if it exists (MFEM v1.0 or NetGen
+    areamesh2), else the built-in geometry of that name (a trailing
+    `.mesh` and any directory part are ignored)."""
+    if os.path.exists(name_or_path):
+        with open(name_or_path) as f:
+            head = f.readline().strip()
+        if head == "areamesh2":
+            return fmesh.load_netgen_2d(name_or_path)
+        return fmesh.load_mfem_mesh(name_or_path)
+    base = os.path.basename(name_or_path)
     if base.endswith(".mesh"):
         base = base[:-5]
     m = _builtin(base)
     if m is None:
-        raise NotImplementedError(
-            f"{name!r} is not a built-in 2D/3D geometry; reading mesh files "
-            "is not ported yet (ROADMAP A7)")
+        raise FileNotFoundError(
+            f"no such mesh file or built-in geometry: {name_or_path}")
     return m

@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
+from . import checkpoint
 from .hydro import Hydro
 from .timing import TimingData, block
 
@@ -40,20 +41,39 @@ def run(
     t_final: float,
     max_steps: int = -1,
     vis_steps: int = 5,
+    on_vis: Optional[Callable] = None,
     check_steps: tuple = (),
     verbose: bool = False,
     timing: bool = False,
+    S_init=None,
+    t_init: float = 0.0,
+    dt_init: Optional[float] = None,
+    step_init: int = 1,
+    checkpoint_path: Optional[str] = None,
 ) -> RunResult:
-    S = hydro.S0
+    """Run from S_init (default hydro.S0) at t_init to t_final.
+
+    With dt_init (a resumed run: t_init, dt_init and step_init = the saved
+    step + 1 from a checkpoint), the first step recomputes its stage-1
+    q-data instead of reusing the memoized one, as the JAX package's host
+    loop does; the trajectory is the uninterrupted run's bit for bit.  At
+    every vis step (and the last) `on_vis(step, t, S)` is called and, with
+    checkpoint_path, a snapshot (S, t, dt, step) is written there."""
+    S = hydro.S0 if S_init is None else S_init
     ie, ke = hydro.energies(S)
     energy_init = float(ie) + float(ke)
 
-    t = 0.0
-    dt0, sJit_prev = hydro.dt_estimate_full(S)
-    dt = float(dt0)
+    t = t_init
+    if dt_init is not None:
+        dt = dt_init
+        sJit_prev = None
+    else:
+        hydro.current_step = step_init
+        dt0, sJit_prev = hydro.dt_estimate_full(S)
+        dt = float(dt0)
     last_step = False
     steps = 0
-    ti = 1
+    ti = step_init
     h1_iters = 0
     l2_iters = 0
     quad_steps = 0
@@ -69,6 +89,7 @@ def run(
         if steps == max_steps:
             last_step = True
         S_old, t_old = S, t
+        hydro.current_step = ti
 
         if timing:
             S_new, dt_est, (h1it, l2it), sJit_new = hydro.advance_timed(
@@ -110,6 +131,10 @@ def run(
             if verbose:
                 print(f"step {ti:5d},\tt = {t:.4f},\tdt = {dt:.6f},"
                       f"\t|e| = {en:.10e}")
+            if on_vis is not None:
+                on_vis(ti, t, S)
+            if checkpoint_path is not None:
+                checkpoint.save(checkpoint_path, S, t, dt, ti)
         ti += 1
 
     block(S)

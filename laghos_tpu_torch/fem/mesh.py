@@ -1,14 +1,15 @@
-"""Meshes: Cartesian generators and uniform refinement.
+"""Meshes: Cartesian generators, mesh-file readers, uniform refinement.
 
-Covers the mesh capabilities the slice consumes from MFEM:
-MakeCartesian2D/3D (laghos.cpp:428-445), UniformRefinement
+Covers the mesh capabilities the reference consumes from MFEM:
+MakeCartesian1D/2D/3D (laghos.cpp:428-445), LoadFromFile (laghos.cpp:390;
+MFEM v1.0 and NetGen areamesh2 files), UniformRefinement
 (laghos.cpp:391,446-449), and the boundary-attribute convention
 attr 1/2/3 = fixed-x/y/z (laghos.cpp:1476-1525).
 
-Quads and hexes; 1D segments wait for ROADMAP A6.  The
-mesh is a purely host-side (NumPy) object: after setup, positions live as a
-torch dof tensor and the topology only survives as gather index maps.
-Same numbering as `laghos_tpu.fem.mesh`, so gather maps agree bitwise.
+Segments, quads and hexes; simplex files raise (ROADMAP A12).  The mesh is
+a purely host-side (NumPy) object: after setup, positions live as a torch
+dof tensor and the topology only survives as gather index maps.  Same
+numbering as `laghos_tpu.fem.mesh`, so gather maps agree bitwise.
 """
 
 from __future__ import annotations
@@ -17,9 +18,13 @@ import dataclasses
 
 import numpy as np
 
+# MFEM geometry ids (mesh/geom.hpp)
+SEGMENT, TRIANGLE, SQUARE, TETRAHEDRON, CUBE = 1, 2, 3, 4, 5
+
 # Map the 2^dim lattice corners (x fastest) to MFEM's vertex ordering.
 # quad: CCW (0,0),(1,0),(1,1),(0,1); hex: bottom CCW then top CCW.
 _CORNER_TO_MFEM = {
+    1: [0, 1],
     2: [0, 1, 3, 2],        # lattice (0,0),(1,0),(0,1),(1,1) -> mfem 0,1,3,2
     3: [0, 1, 3, 2, 4, 5, 7, 6],
 }
@@ -41,6 +46,10 @@ class Mesh:
     def num_elems(self) -> int:
         return self.elems.shape[0]
 
+    @property
+    def num_verts(self) -> int:
+        return self.verts.shape[0]
+
     def corners_lattice(self) -> np.ndarray:
         """Element corner vertex ids in lattice order (x fastest)."""
         return self.elems[:, _CORNER_TO_MFEM[self.dim]]
@@ -61,12 +70,11 @@ def unify_rows(keys: np.ndarray):
 
 
 def cartesian(dim: int, n: tuple, sizes: tuple) -> Mesh:
-    """Cartesian mesh of [0,Sx]x[0,Sy](x[0,Sz]) with MFEM-style bdr attrs.
+    """Cartesian mesh of [0,Sx](x[0,Sy](x[0,Sz])) with MFEM-style bdr
+    attrs.
 
-    Mirrors MakeCartesian{2,3}D + AssignMeshBdrAttrs (laghos.cpp:428-445).
+    Mirrors MakeCartesian{1,2,3}D + AssignMeshBdrAttrs (laghos.cpp:428-445).
     """
-    if dim not in (2, 3):
-        raise NotImplementedError("1D meshes wait for ROADMAP A6")
     n = tuple(int(v) for v in n[:dim])
     sizes = tuple(float(s) for s in sizes[:dim])
     axes = [np.linspace(0.0, sizes[d], n[d] + 1) for d in range(dim)]
@@ -96,22 +104,27 @@ def cartesian(dim: int, n: tuple, sizes: tuple) -> Mesh:
                       for j in range(2**dim)])
     elems = np.array(elems, dtype=np.int32)
 
-    # faces on the domain boundary; attr by face-center position
     bdr_verts, bdr_attr = [], []
-    for d in range(dim):
-        for side in (0, 1):
-            for cell in np.ndindex(*[n[k] for k in range(dim) if k != d]):
-                idx = list(cell)
-                idx.insert(d, side * n[d])
-                face = _face_corners(idx, d, dim)
-                bdr_verts.append([vid(f) for f in face])
-                bdr_attr.append(0)  # assigned after
+    if dim == 1:
+        bdr_verts = [[vid([0])], [vid([n[0]])]]
+        bdr_attr = [1, 1]
+    else:
+        # faces on the domain boundary; attr by face-center position
+        for d in range(dim):
+            for side in (0, 1):
+                for cell in np.ndindex(*[n[k] for k in range(dim)
+                                         if k != d]):
+                    idx = list(cell)
+                    idx.insert(d, side * n[d])
+                    face = _face_corners(idx, d, dim)
+                    bdr_verts.append([vid(f) for f in face])
+                    bdr_attr.append(0)  # assigned after
     bv = np.array(bdr_verts, dtype=np.int32)
     ba = np.array(bdr_attr, dtype=np.int32)
     m = Mesh(dim, verts, elems, bv, ba)
     if dim == 2:
         assign_bdr_attrs_2d(m, 0.0, sizes[0])
-    else:
+    elif dim == 3:
         assign_bdr_attrs_3d(m, 0.0, sizes[0], 0.0, sizes[1])
     return m
 
@@ -155,6 +168,142 @@ def assign_bdr_attrs_3d(mesh: Mesh, xmin, xmax, ymin, ymax, tol=1e-6):
     mesh.bdr_attr = attr.astype(np.int32)
 
 
+_ELEM_VERTS = {SEGMENT: 2, TRIANGLE: 3, SQUARE: 4, TETRAHEDRON: 4, CUBE: 8}
+_BDR_VERTS = {0: 1, SEGMENT: 2, TRIANGLE: 3, SQUARE: 4}
+
+
+def load_mfem_mesh(path: str) -> Mesh:
+    """Read an MFEM mesh v1.0 ASCII file (straight-sided, single geometry).
+
+    Handles both vertex storage variants of the reference data files:
+    inline coordinates, or a trailing linear `nodes` grid function
+    (Ordering 0: all x, then all y, ...).  Simplex meshes raise: their
+    solver is not ported (ROADMAP A12).
+    """
+    with open(path) as f:
+        tokens = []
+        for line in f:
+            line = line.split("#")[0].strip()
+            if line:
+                tokens.extend(line.split())
+    it = iter(tokens)
+    dim = None
+    elems, bdr = [], []
+    nv = 0
+    verts = nodes_vals = vdim = None
+    for tok in it:
+        if tok == "dimension":
+            dim = int(next(it))
+        elif tok == "elements":
+            for _ in range(int(next(it))):
+                attr, geom = int(next(it)), int(next(it))
+                elems.append((attr, geom, [int(next(it))
+                                           for _ in range(_ELEM_VERTS[geom])]))
+        elif tok == "boundary":
+            for _ in range(int(next(it))):
+                attr, geom = int(next(it)), int(next(it))
+                bdr.append((attr, [int(next(it))
+                                   for _ in range(_BDR_VERTS[geom])]))
+        elif tok == "vertices":
+            nv = int(next(it))
+            tok2 = next(it, None)
+            if tok2 is None:
+                break
+            if tok2 == "nodes":
+                # FiniteElementSpace, FiniteElementCollection: <name>,
+                # VDim: v, Ordering: o, then the values
+                rest = list(it)
+                vals = []
+                i = 0
+                while i < len(rest):
+                    t = rest[i]
+                    if t == "FiniteElementSpace":
+                        i += 1
+                    elif t.startswith("FiniteElementCollection"):
+                        i += 2
+                    elif t.startswith("VDim"):
+                        vdim = int(rest[i + 1])
+                        i += 2
+                    elif t.startswith("Ordering"):
+                        i += 2
+                    else:
+                        vals.append(float(t))
+                        i += 1
+                nodes_vals = np.array(vals)
+                break
+            vdim = int(tok2)
+            verts = np.array([float(next(it))
+                              for _ in range(nv * vdim)]).reshape(nv, vdim)
+    if verts is None:
+        verts = nodes_vals.reshape(vdim, nv).T
+
+    geoms = {g for (_, g, _) in elems}
+    if len(geoms) != 1:
+        raise NotImplementedError(f"mixed-geometry mesh: {geoms}")
+    if geoms & {TRIANGLE, TETRAHEDRON}:
+        raise NotImplementedError(
+            f"{path}: simplex meshes are not ported yet (ROADMAP A12)")
+    e = np.array([v for (_, _, v) in elems], dtype=np.int32)
+    bv = np.array([v for (_, v) in bdr], dtype=np.int32).reshape(
+        len(bdr), -1)
+    ba = np.array([a for (a, _) in bdr], dtype=np.int32)
+    return Mesh(dim, verts[:, :dim].astype(np.float64), e, bv, ba)
+
+
+def load_netgen_2d(path: str) -> Mesh:
+    """Read a NetGen 2D 'areamesh2' ASCII mesh of quads (MFEM's NetGen
+    reader, used for the reference's data/square01_quad_unstr.mesh).
+
+    Header line ``areamesh2``; boundary-segment count then rows
+    ``attr v0 v1``; element count then rows ``attr nv v1 .. v_nv``; vertex
+    count then rows ``x y``.  Vertex ids are 1-based; quad rows are CCW,
+    MFEM's quad vertex ordering, so rows are stored verbatim.
+    """
+    with open(path) as f:
+        tokens = f.read().split()
+    if tokens[0] != "areamesh2":
+        raise ValueError(f"not a NetGen areamesh2 file: {path}")
+    it = iter(tokens[1:])
+    nb = int(next(it))
+    bdr = []
+    for _ in range(nb):
+        attr = int(next(it))
+        bdr.append((attr, [int(next(it)) - 1, int(next(it)) - 1]))
+    elems = []
+    for _ in range(int(next(it))):
+        next(it)                                      # element attribute
+        if int(next(it)) != 4:
+            raise NotImplementedError(
+                "only quad areamesh2 meshes are supported")
+        elems.append([int(next(it)) - 1 for _ in range(4)])
+    nv = int(next(it))
+    verts = np.array([[float(next(it)), float(next(it))]
+                      for _ in range(nv)])
+    e = np.array(elems, dtype=np.int32)
+    bv = np.array([v for (_, v) in bdr], dtype=np.int32).reshape(nb, 2)
+    ba = np.array([a for (a, _) in bdr], dtype=np.int32)
+    return Mesh(2, verts, e, bv, ba)
+
+
+def write_mfem_mesh(mesh: Mesh, path: str):
+    """Write an MFEM mesh v1.0 ASCII file (inline vertex coordinates),
+    readable by MFEM's tools and by `load_mfem_mesh`."""
+    geom = {1: SEGMENT, 2: SQUARE, 3: CUBE}[mesh.dim]
+    bgeom = {1: 0, 2: SEGMENT, 3: SQUARE}[mesh.dim]
+    with open(path, "w") as f:
+        f.write("MFEM mesh v1.0\n\ndimension\n%d\n\n" % mesh.dim)
+        f.write("elements\n%d\n" % mesh.num_elems)
+        for row in mesh.elems:
+            f.write("1 %d %s\n" % (geom, " ".join(str(v) for v in row)))
+        f.write("\nboundary\n%d\n" % mesh.bdr_verts.shape[0])
+        for attr, row in zip(mesh.bdr_attr, mesh.bdr_verts):
+            f.write("%d %d %s\n" % (attr, bgeom,
+                                    " ".join(str(v) for v in row)))
+        f.write("\nvertices\n%d\n%d\n" % (mesh.num_verts, mesh.dim))
+        for v in mesh.verts:
+            f.write(" ".join(repr(float(c)) for c in v) + "\n")
+
+
 def uniform_refine(mesh: Mesh) -> Mesh:
     """One level of uniform (1:2^dim) refinement, conforming.
 
@@ -194,7 +343,12 @@ def uniform_refine(mesh: Mesh) -> Mesh:
     NB = mesh.bdr_verts.shape[0]
     if NB:
         fv = mesh.bdr_verts.astype(np.int64)            # (NB, 2^(d-1))
-        if d == 2:
+        if d == 1:
+            bdr_rows = np.sort(np.concatenate(
+                [fv, np.full((NB, ncor - 1), -1, np.int64)], axis=1),
+                axis=1)[:, None, :]                     # (NB, 1, ncor)
+            bdr_coords = mesh.verts[fv[:, 0]][:, None, :]
+        elif d == 2:
             z = np.full((NB, 1), -1, dtype=np.int64)
             r0 = np.sort(np.concatenate([fv[:, :1], z], axis=1), axis=1)
             r1 = np.sort(fv, axis=1)
@@ -250,7 +404,10 @@ def uniform_refine(mesh: Mesh) -> Mesh:
     new_attr = np.zeros(0, dtype=np.int64)
     if NB:
         inv_b = inverse[NE * npts:].reshape(NB, -1)
-        if d == 2:
+        if d == 1:
+            new_bdr = inv_b.reshape(NB, 1)
+            new_attr = mesh.bdr_attr.copy()
+        elif d == 2:
             ch = np.stack([inv_b[:, [0, 1]], inv_b[:, [1, 2]]], axis=1)
             new_bdr = ch.reshape(NB * 2, 2)
             new_attr = np.repeat(mesh.bdr_attr, 2)

@@ -1,47 +1,60 @@
 """LagrangianHydroOperator: the semi-discrete Euler RHS in PyTorch.
 
-The conforming, partial-assembly (PA) operator of the reference
-(laghos_solver.cpp:104-796) over a state dict
+The conforming operator of the reference (laghos_solver.cpp:104-796) over a
+state dict
     S = {"x": (dim, nH1), "v": (dim, nH1), "e": (NE, l2d)}
 solving, per evaluation (laghos_solver.cpp:308-518):
     dx/dt = v
-    Mv dv/dt = - F . 1            (Jacobi-PCG on the H1 mass, per component)
-    Me de/dt = + F^T . v (+ src)  (CG on the L2 mass)
+    Mv dv/dt = - F . 1            (Jacobi-PCG on the H1 mass)
+    Me de/dt = + F^T . v (+ src)  (CG on the L2 mass, or its inverse)
 with the force q-data recomputed by the q-update.
 
 Everything static (basis tables, gather maps, t=0 mass data, lattice
-tables) is built once on the host, in NumPy and CPU torch at the run's
-precision, then copied to the run's device (the card unless the caller asks
-for the CPU).  The per-step work runs eagerly on that device.  Two operator
-paths, as in `laghos_tpu.hydro.Hydro` with dense_ops=False,
-p_assembly=True:
+tables, the assembled mass) is built once on the host, in NumPy and CPU
+torch at the run's precision, then copied to the run's device (the card
+unless the caller asks for the CPU).  The per-step work runs eagerly on
+that device.  As in `laghos_tpu.hydro.Hydro` with dense_ops=False:
 
-* the whole-lattice path (the default, `structured_el` and `lattice_ops`)
-  on raster Cartesian meshes: elements sorted to raster order, dofs
-  renumbered to the lattice; the q-update, F.1, F^T.v and the H1 mass
-  apply run as banded contractions (ops/lattice.py) and the q-point
-  physics as the lattice-layout CUDA kernel; `precond` "auto"/"kron"
-  selects the Kronecker-exact mass inverse;
-* the gather path on any other mesh (or with structured_el=False,
-  lattice_ops=False): gather, sum-factorized contractions, assembly
-  through the incidence gather (or the parity transforms of
-  ops/structured.py when only `structured_el` holds) and the
-  element-layout kernel.
+* partial assembly (PA, `p_assembly`, the default in 2D and 3D), per
+  velocity component a batched CG on the matrix-free mass, CG on the L2
+  mass for the energy; two operator paths:
+  - the whole-lattice path (the default, `structured_el` and
+    `lattice_ops`) on raster Cartesian meshes: elements sorted to raster
+    order, dofs renumbered to the lattice; the q-update, F.1, F^T.v and
+    the H1 mass apply run as banded contractions (ops/lattice.py) and the
+    q-point physics as the lattice-layout CUDA kernel; `precond`
+    "auto"/"kron" selects the Kronecker-exact mass inverse;
+  - the gather path on any other mesh (or with structured_el=False,
+    lattice_ops=False): gather, sum-factorized contractions, assembly
+    through the incidence gather (or the parity transforms of
+    ops/structured.py when only `structured_el` holds) and the
+    element-layout kernel;
+* full assembly (FA, `p_assembly=False`, `-fa`, and always in 1D, where
+  the reference has no PA): the gather-path q-update and force, one
+  coupled Jacobi-PCG over all d*ndof velocity unknowns through the
+  assembled sparse H1 mass (ops/assemble.py), and the energy update
+  through the inverted element L2 mass matrices.
 
-With `ozaki` (3D, f64) the hot contractions of either path run as Ozaki
-products, f64-accurate sums of exact int8 digit products (ops/omm.py, the
-split kernel `csrc/split.cu`): the banded chains of ops/lattice_oz.py with
-the mixed-precision iterative-refinement velocity solve on the lattice
-path, the dense element operators on the gather path, and the L2 energy
-CG's mass apply on both.
+With `ozaki` (3D, f64, PA) the hot contractions of either PA path run as
+Ozaki products, f64-accurate sums of exact int8 digit products
+(ops/omm.py, the split kernel `csrc/split.cu`): the banded chains of
+ops/lattice_oz.py with the mixed-precision iterative-refinement velocity
+solve on the lattice path, the dense element operators on the gather path,
+and the L2 energy CG's mass apply on both.
 
-Neither path assembles with atomics, so a run is bitwise repeatable on
-the card.
+No path assembles with atomics, so a run is bitwise repeatable on the
+card (the FA sparse product included, as chip_smoke.py checks).
+
+`debug_nans` (the CLI's --debug-nans) checks the outputs of every phase
+(q-update, F.1, velocity solve, F^T.v, energy solve) for non-finite values
+and raises FloatingPointError naming the phase and `current_step`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 
 import numpy as np
 import torch
@@ -52,6 +65,7 @@ from .fem import basis as fb
 from .fem import quadrature as fq
 from .fem.mesh import Mesh
 from .fem.space import build_h1_space
+from .ops import assemble as aop
 from .ops import force as fop
 from .ops import lattice as lop
 from .ops import lattice_oz as lzo
@@ -77,8 +91,21 @@ class Options:
     cfl: float = 0.5
     cg_tol: float = 1e-8      # -cgt
     cg_max_iter: int = 300    # -cgm
+    ftz_tol: float = 0.0      # -ftz: recorded and numerically dead, as in
+                              # the reference (laghos.cpp:233 parses it and
+                              # never uses it; the force flush is the
+                              # hardcoded eps^2, Hydro.ftz_eps2)
+    p_assembly: bool = True   # -pa / -fa (forced off in 1D, which the
+                              # reference runs without PA)
+    fa_assembled: bool = True  # -fa velocity CG through the assembled sparse
+                               # H1 mass (laghos_solver.cpp:413-439); False
+                               # applies the same mass matrix-free
+    impose_visc: bool = False  # -iv
     blast_energy: float = 1.0  # -E0
+    delta_tol: float = 1e-12   # -dtol: distance within which a mesh vertex
+                               # must lie of the Sedov blast position
     ode_solver: int = 4        # -s
+    blast_position: tuple = (0.0, 0.0, 0.0)
     structured_el: bool = True  # raster element order, lattice dof
                                 # numbering and parity E<->L transforms on
                                 # Cartesian meshes (ops/structured.py);
@@ -113,12 +140,6 @@ class Options:
                                 # recomputes r = b - A x at full slices
 
 
-# Sedov blast point and the distance within which a mesh vertex must lie
-# for the delta projection (laghos.cpp -dtol default)
-_BLAST_POSITION = (0.0, 0.0, 0.0)
-_DELTA_TOL = 1e-12
-
-
 def _l2_node_coords(mesh: Mesh, pts_per_dim: np.ndarray) -> np.ndarray:
     """Physical coords of tensor-lattice points `pts_per_dim` (n,) in [0,1]
     inside each (multi)linear element: (NE, n^dim, dim)."""
@@ -143,6 +164,21 @@ def _axpy(a, c, b):
     return {k: a[k] + c * b[k] for k in a}
 
 
+def _phase(name):
+    """Mark an operator piece as a phase: with `debug_nans` set, its
+    floating outputs (0-d ones, such as the dt estimate, aside) must be
+    finite."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            if self.debug_nans:
+                self._check_finite(name, out)
+            return out
+        return inner
+    return wrap
+
+
 class Hydro:
     """All static data and the per-step operators of one run."""
 
@@ -150,8 +186,8 @@ class Hydro:
                  device="cuda"):
         """Static data of one run on `device` ("cuda", the default, or
         "cpu"), resolved by device.setup: without a card "cuda" raises."""
-        if mesh.dim not in (2, 3):
-            raise NotImplementedError("1D is not ported yet (ROADMAP A6)")
+        if mesh.dim not in (1, 2, 3):
+            raise ValueError(f"mesh dimension {mesh.dim}")
         if opt.ode_solver not in (1, 2, 3, 4, 6, 7):
             raise ValueError(f"unknown ode solver {opt.ode_solver}")
         if opt.precond == "schwarz":
@@ -160,7 +196,7 @@ class Hydro:
         if opt.precond not in ("jacobi", "auto", "kron"):
             raise ValueError(f"unknown precond {opt.precond!r}")
         if opt.ozaki:
-            if mesh.dim != 3 or dtype != torch.float64:
+            if mesh.dim != 3 or dtype != torch.float64 or not opt.p_assembly:
                 raise ValueError(
                     "ozaki mode covers the 3D f64 partial-assembly path")
             if not 1 <= opt.ozaki_slices <= omm.S_FULL:
@@ -181,6 +217,8 @@ class Hydro:
         NE = self.NE = mesh.num_elems
         pb = opt.problem
         self.qupdate_calls = 0
+        self.debug_nans = False
+        self.current_step = 0      # the driver's step number, for messages
         # IR velocity solve counts (see ir_stats); the inner sweeps add up
         # on the device, so counting them costs no sync
         self._ir = {"solves": 0, "outers": 0, "outer_applies": 0}
@@ -188,6 +226,10 @@ class Hydro:
 
         self.source, self.use_visc, self.use_vort = problems.problem_flags(
             pb, d)
+        if opt.impose_visc:
+            self.use_visc = True
+        # 1D has no PA in the reference (laghos.cpp:455-462)
+        self.p_assembly = opt.p_assembly and d > 1
 
         # --- spaces and tables -------------------------------------------
         self.h1 = build_h1_space(mesh, opt.order_v)
@@ -286,7 +328,9 @@ class Hydro:
         self.rho0DetJ0w = W[None, :] * rho0_q * detJ0
 
         vol = float((W[None, :] * detJ0).sum())
-        if d == 2:
+        if d == 1:
+            h0 = vol / NE
+        elif d == 2:
             h0 = np.sqrt(vol / NE)
         else:
             h0 = (vol / NE) ** (1.0 / 3.0)
@@ -320,7 +364,7 @@ class Hydro:
         # sweeps of the IR velocity solve
         self._lat = self._lat_dims = self._edims = None
         self._lat_oz = self._lat32 = None
-        if opt.lattice_ops:
+        if opt.lattice_ops and self.p_assembly:
             built = lop.build_lattice_ops(
                 self, lambda t: self._dev(t.to(dtype)))
             if built is not None:
@@ -349,6 +393,28 @@ class Hydro:
             self.Jac0inv_t = self._dev(Jac0inv_t)
         self.one_l2 = torch.ones((NE, self.ld), dtype=dtype,
                                  device=self.device)
+        # full assembly: the velocity mass assembled once into a global
+        # sparse matrix from the time-constant rho0*detJ0 data (the
+        # reference's one-time mass assembly, laghos_solver.cpp:201-221),
+        # the Jacobi diagonal over all d*ndof unknowns with ones at the
+        # essential dofs, and the inverted element L2 mass matrices
+        self._h1_csr = self.Me_inv = self._fa_dinv = None
+        self.fa_setup_seconds = 0.0
+        if not self.p_assembly:
+            t_fa = time.perf_counter()
+            if opt.fa_assembled:
+                Mel = aop.h1_mass_element_matrices(
+                    massD_cpu, self._tables_cpu["H1B"], d)
+                self._h1_csr = aop.to_csr(Mel.numpy(), self.h1.gather,
+                                          self.ndof, self.device)
+            Me = mop.l2_mass_matrices(massD_cpu, self._tables_cpu["L2B"], d)
+            self.Me_inv = self._dev(torch.tensor(np.linalg.inv(Me.numpy()),
+                                                 dtype=dtype))
+            dinv = self.h1_dinv[None, :].expand(d, -1)
+            self._fa_dinv = torch.where(self.ess_mask_t,
+                                        torch.ones_like(dinv),
+                                        dinv).reshape(1, -1)
+            self.fa_setup_seconds = time.perf_counter() - t_fa
         eps = np.finfo(np.float64).eps
         self.ftz_eps2 = eps * eps
 
@@ -400,11 +466,11 @@ class Hydro:
         blast_energy / 2^dim.
         """
         mesh, opt, d = self.mesh, self.opt, self.dim
-        center = np.asarray(_BLAST_POSITION[:d])
+        center = np.asarray(opt.blast_position[:d])
         dist = np.linalg.norm(mesh.verts - center[None, :], axis=1)
         v_idx = int(np.argmin(dist))
         out = np.zeros((self.NE, self.ld))
-        if dist[v_idx] >= _DELTA_TOL:
+        if dist[v_idx] >= opt.delta_tol:
             raise RuntimeError("Delta function could not be initialized "
                                "(no mesh vertex at the blast position)")
         p = opt.order_e
@@ -450,7 +516,22 @@ class Hydro:
         out *= scale
         return out
 
+    def _check_finite(self, phase, out):
+        """--debug-nans: raise if a floating output of `phase` (tensors of
+        one dimension or more, in `out` or its tuples) is not finite."""
+        todo = [out]
+        while todo:
+            x = todo.pop()
+            if isinstance(x, (tuple, list)):
+                todo.extend(x)
+            elif (isinstance(x, torch.Tensor) and x.is_floating_point()
+                  and x.dim() > 0 and not bool(torch.isfinite(x).all())):
+                raise FloatingPointError(
+                    f"--debug-nans: non-finite values after the {phase} at "
+                    f"step {self.current_step}")
+
     # -------------------------------------------------- operator pieces --
+    @_phase("q-update")
     def _qupdate(self, S):
         """(sJit, dt_min) at state S.  sJit is (9, NE, NQ) in 3D and
         (NE, NQ, 2, 2) in 2D on the gather path; (9, Qz, Qy, Qx) and
@@ -497,6 +578,7 @@ class Hydro:
         """(C, ndof) L-vector -> (NE, C, nd) E-vector."""
         return self._l_to_e(u).transpose(0, 1)
 
+    @_phase("force F.1")
     def _force_rhs_raw(self, sJit):
         """F . 1 assembled to the H1 L-vector (the sw_force-timed part of
         SolveVelocity, laghos_solver.cpp:354)."""
@@ -639,12 +721,35 @@ class Hydro:
         inner = 0 if self._ir_inner is None else int(self._ir_inner)
         return dict(self._ir, inner_sweeps=inner)
 
+    @_phase("velocity solve")
     def _cg_velocity(self, rhs):
+        if not self.p_assembly:
+            return self._cg_velocity_fa(rhs)
         if self._lat32 is not None and self.opt.cg_ir:
             return self._cg_velocity_ir(rhs)
         res = cg(self._h1_apply_bc, rhs, self.opt.cg_tol,
                  self.opt.cg_max_iter, precond=self._precond_velocity)
         return res.x, torch.sum(res.iters)
+
+    def _cg_velocity_fa(self, rhs):
+        """FA velocity solve: ONE coupled Jacobi-PCG over all d*ndof
+        unknowns (laghos_solver.cpp:400-439), through the assembled sparse
+        mass (or, with fa_assembled=False, the matrix-free one), so one
+        residual and one iteration count cover every component."""
+        d = self.dim
+
+        if self._h1_csr is not None:
+            def apply_flat(u):
+                y = aop.csr_apply(self._h1_csr, u.reshape(d, -1))
+                return torch.where(self.ess_mask_t, torch.zeros_like(y),
+                                   y).reshape(1, -1)
+        else:
+            def apply_flat(u):
+                return self._h1_apply_bc(u.reshape(d, -1)).reshape(1, -1)
+
+        res = cg(apply_flat, rhs.reshape(1, -1), self.opt.cg_tol,
+                 self.opt.cg_max_iter, precond=lambda r: r * self._fa_dinv)
+        return res.x.reshape(d, -1), torch.sum(res.iters)
 
     def _solve_velocity(self, sJit):
         return self._cg_velocity(self._prep_velocity_rhs(
@@ -669,6 +774,7 @@ class Hydro:
         out = top.eval_transpose(it, self.tables["L2B"].T, d)
         return out.reshape(self.NE, self.ld)
 
+    @_phase("force F^T.v")
     def _force_transpose(self, sJit, v):
         if self._lat is not None:
             fT = (lop.force_transpose_lattice if self.dim == 3
@@ -685,7 +791,14 @@ class Hydro:
             return fop.force_mult_transpose9(v_e, sJit, self.tables)
         return fop.force_mult_transpose(v_e, sJit, self.tables, dim=self.dim)
 
+    @_phase("energy solve")
     def _cg_energy(self, e_rhs):
+        if not self.p_assembly:
+            # FA: the inverted element mass matrices; the iteration count
+            # the JAX package reports is NE
+            de = torch.einsum("eij,ej->ei", self.Me_inv, e_rhs)
+            return de, torch.tensor(self.NE, device=self.device)
+
         def apply_A(u):
             ue = u.reshape(self.NE, self.ld)
             ue = mop.mass_apply_e(ue, self.massD, self.tables["L2B"],
@@ -958,6 +1071,20 @@ class Hydro:
         """||e||_2 of the L2 coefficient vector (the driver's |e| print,
         laghos.cpp:794-825)."""
         return float(torch.sqrt(torch.sum(S["e"] * S["e"])))
+
+    def compute_density(self, S):
+        """The current density rho = rho0 detJ0 / detJ projected onto L2
+        (laghos_solver.cpp:542-563): (NE, ld) Bernstein coefficients."""
+        d = self.dim
+        x_e = self._gather_e(S["x"])
+        J = qop.jacobians(x_e, self.tables["H1B"], self.tables["H1G"], d)
+        D = self.tables["W"][None, :] * smallmat.det(J, d)
+        M = mop.l2_mass_matrices(D, self.tables["L2B"], d)
+        # rhs_j = sum_q psi_j(q) rho0DetJ0w(q)
+        rt = self.rho0DetJ0w_t.reshape((self.NE,) + (self.nq1,) * d)
+        rhs = top.eval_transpose(rt, self.tables["L2B"].T, d).reshape(
+            self.NE, self.ld)
+        return torch.linalg.solve(M, rhs[..., None])[..., 0]
 
 
 # Verner's 6(5) 8-stage tableau as used by mfem::RK6Solver.

@@ -8,8 +8,9 @@ Physics (ideal gas, cf. laghos_solver.hpp:151-160):
 with the tensor artificial viscosity of Dobrev/Kolev/Rieben built from the
 eigen-decomposition of the symmetrized velocity gradient.
 
-`qupdate` is the 2D path (plain torch); `qupdate3d` feeds the scalarized 3D
-fields to `qphys.physics_3d`, which launches the CUDA kernel on the card.
+`qupdate` is the 1D and 2D path (plain torch); `qupdate3d` feeds the
+scalarized 3D fields to `qphys.physics_3d`, which launches the CUDA kernel
+on the card.
 """
 
 from __future__ import annotations
@@ -43,16 +44,15 @@ def qupdate(
     use_viscosity: bool,
     use_vorticity: bool,
 ):
-    """2D q-update: returns (stressJinvT (NE,NQ,2,2) indexed [gd,vd],
-    dt_est 0-d tensor).
+    """1D and 2D q-update: returns (stressJinvT (NE,NQ,d,d) indexed
+    [gd,vd], dt_est 0-d tensor).
 
     The per-point dt estimate replicates laghos_solver.cpp:1135-1156,
     including the detJ<0 -> dt_est=0 step-rejection trigger.
     """
-    if dim != 2:
-        raise NotImplementedError(
-            "qupdate is the 2D path; 3D runs qupdate3d, 1D waits for "
-            "ROADMAP A6")
+    if dim not in (1, 2):
+        raise NotImplementedError("qupdate is the 1D and 2D path; 3D runs "
+                                  "qupdate3d")
     d = dim
     NE = x_e.shape[0]
     H1B, H1G, L2B, W = (tables["H1B"], tables["H1G"], tables["L2B"],
@@ -99,7 +99,7 @@ def qupdate(
                 torch.ones_like(grad_norm))
 
         sym = 0.5 * (sgrad + torch.swapaxes(sgrad, -2, -1))
-        mu, compr_dir = smallmat._eig2_smallest(sym)
+        mu, compr_dir = smallmat.sym_eig_smallest(sym, d)
         Jpi = torch.einsum("...ab,...bk->...ak", J, Jac0inv)
         ph_dir = torch.einsum("...ab,...b->...a", Jpi, compr_dir)
         h = (h0 * torch.sqrt(torch.sum(ph_dir * ph_dir, dim=-1))
@@ -111,8 +111,7 @@ def qupdate(
             * (1.0 - smooth_step_01(mu - 2.0 * eps, eps)))
         stress = stress + visc_coeff[..., None, None] * sym
 
-    sv = smallmat.min_sv2_scalar(J[..., 0, 0], J[..., 0, 1], J[..., 1, 0],
-                                 J[..., 1, 1])
+    sv = smallmat.min_singular_value(J, d)
     h_min = sv / h1order
     ih_min = 1.0 / h_min
     idt = S * ih_min + 2.5 * visc_coeff * ih_min * ih_min / R

@@ -2,8 +2,9 @@
 
 Equivalents of the mfem::kernels device helpers used by the reference's
 quadrature-point physics (laghos_solver.cpp:1078-1158), written as
-elementwise torch ops in closed form.  Only what the slice calls: the 2D
-closed forms and the scalarized 3D eigen-solve `eig3s_hybrid`.
+elementwise torch ops in closed form.  Only what the port calls: the 1D
+and 2D closed forms, the 3D determinant and the scalarized 3D eigen-solve
+`eig3s_hybrid`.
 
 Every function keeps the operation order of `laghos_tpu.ops.smallmat`, and
 `torch.maximum`/`torch.minimum` propagate NaN as `jnp.maximum`/`jnp.minimum`
@@ -21,19 +22,27 @@ _EPS64 = 2.0 ** -52
 
 
 def det(J: torch.Tensor, d: int) -> torch.Tensor:
-    """Determinant of 2x2 batches (3D runs the fused q-point physics)."""
-    if d != 2:
-        raise NotImplementedError("det is the 2D closed form")
-    return J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    """Determinant of dxd batches in closed form (the 3D q-update computes
+    its own inside the fused q-point physics)."""
+    if d == 1:
+        return J[..., 0, 0]
+    if d == 2:
+        return J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    a, b, c = J[..., 0, 0], J[..., 0, 1], J[..., 0, 2]
+    p, q, r = J[..., 1, 0], J[..., 1, 1], J[..., 1, 2]
+    u, v, w = J[..., 2, 0], J[..., 2, 1], J[..., 2, 2]
+    return a * (q * w - r * v) - b * (p * w - r * u) + c * (p * v - q * u)
 
 
 def inv(J: torch.Tensor, d: int, detJ=None) -> torch.Tensor:
-    """Inverse of 2x2 batches by the adjugate."""
-    if d != 2:
-        raise NotImplementedError("inv is the 2D closed form")
+    """Inverse of 1x1 and 2x2 batches (2x2 by the adjugate)."""
+    if d not in (1, 2):
+        raise NotImplementedError("inv is the 1D and 2D closed form")
     if detJ is None:
         detJ = det(J, d)
     idet = 1.0 / detJ
+    if d == 1:
+        return idet[..., None, None]
     r0 = torch.stack([J[..., 1, 1], -J[..., 0, 1]], dim=-1)
     r1 = torch.stack([-J[..., 1, 0], J[..., 0, 0]], dim=-1)
     return torch.stack([r0, r1], dim=-2) * idet[..., None, None]
@@ -45,6 +54,22 @@ def _eig2_smallest(A: torch.Tensor):
     lam_min, vx, vy = eig2_smallest_scalar(
         A[..., 0, 0], A[..., 1, 1], A[..., 0, 1])
     return lam_min, torch.stack([vx, vy], dim=-1)
+
+
+def sym_eig_smallest(A: torch.Tensor, d: int):
+    """(lambda_min, eigenvector) of symmetric 1x1 and 2x2 batches."""
+    if d == 1:
+        return A[..., 0, 0], torch.ones_like(A[..., 0, :])
+    return _eig2_smallest(A)
+
+
+def min_singular_value(J: torch.Tensor, d: int) -> torch.Tensor:
+    """Smallest singular value of 1x1 and 2x2 batches
+    (mfem kernels::CalcSingularvalue)."""
+    if d == 1:
+        return torch.abs(J[..., 0, 0])
+    return min_sv2_scalar(J[..., 0, 0], J[..., 0, 1], J[..., 1, 0],
+                          J[..., 1, 1])
 
 
 def _sign(x):

@@ -104,6 +104,47 @@ def print_timing(tim: TimingData, *, steps: int, H1_dofs: int, L2_dofs: int,
     return result
 
 
+def run_metadata(*, args=None, opt=None, result=None, extra=None,
+                 device=None):
+    """Adiak-style run-provenance record (laghos.cpp:1288-1346), as
+    `laghos_tpu.timing.run_metadata`: the CLI configuration, the Options,
+    library versions, host and device identity and the FOM figures, as one
+    JSON-ready dict (the CLI writes it to laghos_run_metadata.json with
+    -f)."""
+    import dataclasses
+    import datetime
+    import os
+    import platform
+    import sys
+
+    rec = {
+        "launchdate": datetime.datetime.now().isoformat(timespec="seconds"),
+        "cmdline": sys.argv,
+        "cluster": platform.node(),
+        "executable": os.path.abspath(sys.argv[0]) if sys.argv else "",
+        "user": os.environ.get("USER", ""),
+        "python": platform.python_version(),
+        "platform": platform.platform(),
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+    }
+    if device is not None:
+        device = torch.device(device)
+        rec["device"] = str(device)
+        if device.type == "cuda":
+            rec["device_name"] = torch.cuda.get_device_name(device)
+            rec["device_count"] = torch.cuda.device_count()
+    if args is not None:
+        rec["config"] = {k: v for k, v in sorted(vars(args).items())}
+    if opt is not None:
+        rec["options"] = dataclasses.asdict(opt)
+    if result is not None:
+        rec["fom"] = result
+    if extra:
+        rec.update(extra)
+    return rec
+
+
 _FLUSH = []
 
 

@@ -1,6 +1,13 @@
-"""Verification: the reference's early-step `--checks` gate."""
+"""Verification: the reference's early-step `--checks` gate and the
+exact-solution velocity error norms."""
 
 from __future__ import annotations
+
+import numpy as np
+
+from . import problems
+from .fem import basis as fb
+from .fem import quadrature as fq
 
 # Early-step |e| regression table (laghos.cpp:1441-1463): per dim/problem,
 # (step, norm) checked to relative tolerance 1e-13.
@@ -50,3 +57,54 @@ def run_checks(problem: int, dim: int, norms: dict, eps: float = 1e-13):
     if fired != 2:
         raise AssertionError("Check error!")
     return True
+
+
+def velocity_error_norms(hydro, S):
+    """(L_inf, L_1, L_2) norms of v - v_exact(x) on the current mesh, the
+    reference's steady-state velocity error report for Taylor-Green and
+    Gresho (laghos.cpp:970-983), sampled at MFEM's default error rule of
+    order 2p + 3.  Host NumPy on a copy of the state, as
+    `laghos_tpu.verify.velocity_error_norms`."""
+    d = hydro.dim
+    opt = hydro.opt
+    nq1 = fq.points_for_order(2 * opt.order_v + 3)
+    _, w1 = fq.gauss_legendre(nq1)
+    W = w1
+    for _ in range(d - 1):
+        W = np.kron(w1, W)
+    h1b = fb.h1_gl_basis(opt.order_v, nq1)
+
+    gather = hydro.h1.gather
+    x_e = S["x"].detach().cpu().numpy()[:, gather].transpose(1, 0, 2)
+    v_e = S["v"].detach().cpu().numpy()[:, gather].transpose(1, 0, 2)
+    NE = hydro.NE
+
+    def at_q(u_e):
+        ut = u_e.reshape((NE, d) + (hydro.nd1,) * d)
+        for k in range(d):
+            ax = ut.ndim - 1 - k
+            ut = np.moveaxis(np.tensordot(ut, h1b.B, axes=[[ax], [1]]),
+                             -1, ax)
+        return np.moveaxis(ut.reshape(NE, d, -1), 1, 2)  # (NE, NQ, d)
+
+    xq = at_q(x_e)
+    vq = at_q(v_e)
+    vex = problems.v0(opt.problem, xq, d)
+
+    # detJ at the error rule points
+    xt = x_e.reshape((NE, d) + (hydro.nd1,) * d)
+    J = np.zeros((NE, W.size, d, d))
+    for b in range(d):
+        ut = xt
+        for k in range(d):
+            mat = h1b.G if k == b else h1b.B
+            ax = ut.ndim - 1 - k
+            ut = np.moveaxis(np.tensordot(ut, mat, axes=[[ax], [1]]), -1, ax)
+        J[..., b] = np.moveaxis(ut.reshape(NE, d, -1), 1, 2)
+    detJ = np.abs(np.linalg.det(J))
+
+    err = np.linalg.norm(vq - vex, axis=-1)          # (NE, NQ)
+    linf = float(err.max())
+    l1 = float(np.sum(W[None, :] * detJ * err))
+    l2 = float(np.sqrt(np.sum(W[None, :] * detJ * err**2)))
+    return linf, l1, l2

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (element, q-lattice and packed layouts of
 csrc/qphys.cu, f64 and f32; the Ozaki split of csrc/split.cu) against their
-plain PyTorch versions, on the card, and the Ozaki int8 products of
-ops/omm.py on the card against the same products on the CPU.  This file imports neither JAX nor `laghos_tpu`, so it also runs
-on a machine without them:
+plain PyTorch versions, on the card; the Ozaki int8 products of
+ops/omm.py and the full-assembly mass product of ops/assemble.py on the
+card against the same products on the CPU.  This file imports neither JAX
+nor `laghos_tpu`, so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -400,3 +401,45 @@ def test_ozaki_mult_on_card_matches_cpu(kw):
         err = float((b[key].cpu() - ref).abs().max())
         assert err <= 1e-12 * max(float(ref.abs().max()), 1e-300), key
     assert abs(float(dtb) - float(dta)) <= 1e-12 * float(dta)
+
+
+def _fa_mass(dim, rs, seed=0):
+    """The assembled scalar H1 mass (Q2) of the Sedov mesh refined rs
+    times, with seeded quadrature data, as element matrices and gather."""
+    from laghos_tpu_torch.fem import basis as tbasis
+    from laghos_tpu_torch.fem import space as tspace
+    from laghos_tpu_torch.ops import assemble as tasm
+
+    m = tmesh.cartesian(dim, (2,) * dim, (1.0,) * dim)
+    for _ in range(rs):
+        m = tmesh.uniform_refine(m)
+    sp = tspace.build_h1_space(m, 2)
+    B = torch.tensor(tbasis.h1_gl_basis(2, 4).B)
+    rng = np.random.default_rng(seed)
+    D = torch.tensor(rng.uniform(0.5, 1.5, (m.num_elems, 4**dim)))
+    return tasm.h1_mass_element_matrices(D, B, dim).numpy(), sp, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,rs", [(1, 5), (2, 3), (3, 2)])
+def test_csr_apply_on_card_matches_cpu_and_repeats(dim, rs):
+    """The FA velocity mass product (ops/assemble.csr_apply) on the card
+    against the CPU at round-off, and bit for bit equal to itself over
+    repeated applies and a second copy of the matrix."""
+    from laghos_tpu_torch.ops import assemble as tasm
+
+    dev = _card()
+    Mel, sp, rng = _fa_mass(dim, rs)
+    A_cpu = tasm.to_csr(Mel, sp.gather, sp.ndof)
+    A_gpu = tasm.to_csr(Mel, sp.gather, sp.ndof, dev)
+    assert torch.equal(A_gpu.values().cpu(), A_cpu.values())
+    u = torch.tensor(rng.normal(size=(dim, sp.ndof)))
+    y_cpu = tasm.csr_apply(A_cpu, u)
+    y = tasm.csr_apply(A_gpu, u.to(dev))
+    torch.cuda.synchronize()
+    assert float((y.cpu() - y_cpu).abs().max()) <= \
+        1e-14 * float(y_cpu.abs().max())
+    for _ in range(50):
+        assert torch.equal(tasm.csr_apply(A_gpu, u.to(dev)), y)
+    A2 = tasm.to_csr(Mel, sp.gather, sp.ndof, dev)
+    assert torch.equal(tasm.csr_apply(A2, u.to(dev)), y)
