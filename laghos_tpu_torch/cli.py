@@ -93,9 +93,10 @@ def build_parser():
                    dest="cg_tol")
     p.add_argument("-ftz", "--ftz-tol", type=float, default=0.0,
                    dest="ftz_tol",
-                   help="accepted and recorded, numerically dead as in the "
-                        "reference (laghos.cpp:233 parses it and never "
-                        "uses it; the force flush is the hardcoded eps^2)")
+                   help="accepted and recorded in the run metadata; "
+                        "numerically dead as in the reference (laghos.cpp:233 "
+                        "parses it and never uses it; the force flush is the "
+                        "hardcoded eps^2)")
     p.add_argument("-dtol", "--delta-tol", type=float, default=1e-12,
                    dest="delta_tol")
     p.add_argument("-cgm", "--cg-max-steps", type=int, default=300,
@@ -240,9 +241,8 @@ def main(argv=None) -> CliRun:
     opt = Options(
         problem=args.problem, order_v=args.order_v, order_e=args.order_e,
         order_q=args.order_q, cfl=args.cfl, cg_tol=args.cg_tol,
-        cg_max_iter=args.cg_max_iter, ftz_tol=args.ftz_tol,
-        p_assembly=args.pa, impose_visc=args.impose_visc,
-        blast_energy=args.blast_energy, delta_tol=args.delta_tol,
+        cg_max_iter=args.cg_max_iter, p_assembly=args.pa,
+        impose_visc=args.impose_visc, blast_energy=args.blast_energy, delta_tol=args.delta_tol,
         ode_solver=args.ode_solver, precond=args.precond, ozaki=args.ozaki)
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     h = Hydro(m, opt, dtype=dtype, device=device)

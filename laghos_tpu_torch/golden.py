@@ -11,10 +11,10 @@ the table's, the gate of the JAX package's scripts/golden_run.py.  Prints
 one line per row with its seconds; exits non-zero if a row fails.
 
 The built-in `box01_hex` of row 7 is a uniform 4x2x2 box, a stand-in for
-the reference's non-uniform box file, and neither package reproduces the
-reference's 858 steps on it.  On the built-in mesh, row 7 is held to the
-JAX package's run of the same command on the same mesh
-(`python -m laghos_tpu -p 3 -m box01_hex -rs 1 -tf 5.0 -pa`, CPU).
+the reference's non-uniform box file, so the table's figures do not apply
+to it: row 7 runs and is reported as having no reference mesh, neither
+passed nor failed.  tests/test_torch_fa.py holds it to the JAX package's
+run of the same command on the same mesh.
 """
 
 from __future__ import annotations
@@ -46,22 +46,17 @@ GOLDEN = {
     9: ("-p 7 -m rt2D -tf 4 -rs 1 -ok 4 -ot 3 -pa",
         2462, 0.000050, 1.1792848680e+02),
 }
-# rows whose built-in mesh is not the reference's: the JAX package's
-# (step, dt, |e|) for the same command on the same built-in mesh
-BUILTIN_REF = {7: (1459, 0.000531, 5.5836603007e+01)}
+# rows whose built-in mesh is a stand-in for the reference's mesh file
+NO_REF_MESH = {7}
 REL_TOL = 1e-9
 
 
 def run_row(row: int, device: str = "cuda", verbose: bool = False) -> dict:
-    """Run one row through the CLI; returns its figures and `ok`, and the
-    CLI's result as `run`."""
+    """Run one row through the CLI; returns its figures and `ok` (None for
+    a row without its reference mesh), and the CLI's result as `run`."""
     from . import cli
 
     cmd, ref_step, ref_dt, ref_e = GOLDEN[row]
-    ref = "reference"
-    if row in BUILTIN_REF:
-        ref_step, ref_dt, ref_e = BUILTIN_REF[row]
-        ref = "JAX package on the built-in mesh"
     argv = cmd.split() + ["-d", device, "-vs", "100"]
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -72,20 +67,21 @@ def run_row(row: int, device: str = "cuda", verbose: bool = False) -> dict:
     res = run.result
     rel = abs(res.e_norm - ref_e) / ref_e
     dt_ok = f"{res.dt:.6f}" == f"{ref_dt:.6f}"
-    ok = res.steps == ref_step and dt_ok and rel < REL_TOL
+    ok = (None if row in NO_REF_MESH
+          else res.steps == ref_step and dt_ok and rel < REL_TOL)
     return dict(row=row, cmd=cmd, steps=res.steps,
                 ref_step=ref_step, dt=res.dt, ref_dt=ref_dt,
-                e_norm=res.e_norm, ref_e=ref_e, ref=ref, rel=rel,
+                e_norm=res.e_norm, ref_e=ref_e, rel=rel,
                 seconds=seconds, ok=ok, run=run, output=out.getvalue())
 
 
 def line(r: dict) -> str:
-    return (f"row {r['row']} ({r['cmd']}; against the {r['ref']}): "
-            f"steps {r['steps']} (ref "
+    verdict = {True: "OK", False: "FAIL",
+               None: "NO-REFERENCE-MESH (built-in stand-in)"}[r["ok"]]
+    return (f"row {r['row']} ({r['cmd']}): steps {r['steps']} (ref "
             f"{r['ref_step']}), dt {r['dt']:.6f} (ref {r['ref_dt']:.6f}), "
             f"|e| {r['e_norm']:.10e} (ref {r['ref_e']:.10e}, rel "
-            f"{r['rel']:.2e}), {r['seconds']:.1f} s "
-            f"{'OK' if r['ok'] else 'FAIL'}")
+            f"{r['rel']:.2e}), {r['seconds']:.1f} s {verdict}")
 
 
 def main(argv=None) -> int:
@@ -97,13 +93,17 @@ def main(argv=None) -> int:
                     help="show the CLI's output")
     args = ap.parse_args(argv)
     rows = sorted(GOLDEN) if args.row == "all" else [int(args.row)]
-    ok = True
+    ok, no_ref = True, []
     for row in rows:
         r = run_row(row, args.device, args.verbose)
         print(line(r), flush=True)
-        ok &= r["ok"]
+        ok &= r["ok"] is not False
+        if r["ok"] is None:
+            no_ref.append(str(row))
     if len(rows) > 1:
-        print("ALL-OK" if ok else "SOME-FAILED")
+        print(("ALL-OK" if ok else "SOME-FAILED")
+              + (f" (not held, no reference mesh: row {', '.join(no_ref)})"
+                 if no_ref else ""))
     return 0 if ok else 1
 
 

@@ -91,21 +91,13 @@ class Options:
     cfl: float = 0.5
     cg_tol: float = 1e-8      # -cgt
     cg_max_iter: int = 300    # -cgm
-    ftz_tol: float = 0.0      # -ftz: recorded and numerically dead, as in
-                              # the reference (laghos.cpp:233 parses it and
-                              # never uses it; the force flush is the
-                              # hardcoded eps^2, Hydro.ftz_eps2)
     p_assembly: bool = True   # -pa / -fa (forced off in 1D, which the
                               # reference runs without PA)
-    fa_assembled: bool = True  # -fa velocity CG through the assembled sparse
-                               # H1 mass (laghos_solver.cpp:413-439); False
-                               # applies the same mass matrix-free
     impose_visc: bool = False  # -iv
     blast_energy: float = 1.0  # -E0
     delta_tol: float = 1e-12   # -dtol: distance within which a mesh vertex
                                # must lie of the Sedov blast position
     ode_solver: int = 4        # -s
-    blast_position: tuple = (0.0, 0.0, 0.0)
     structured_el: bool = True  # raster element order, lattice dof
                                 # numbering and parity E<->L transforms on
                                 # Cartesian meshes (ops/structured.py);
@@ -138,6 +130,11 @@ class Options:
                                 # (r <- r - A dx) at one slice fewer after
                                 # the first outer; off = every outer
                                 # recomputes r = b - A x at full slices
+
+
+# Sedov blast point, a constant of the reference's delta projection
+# (laghos.cpp:597-616)
+_BLAST_POSITION = (0.0, 0.0, 0.0)
 
 
 def _l2_node_coords(mesh: Mesh, pts_per_dim: np.ndarray) -> np.ndarray:
@@ -402,11 +399,10 @@ class Hydro:
         self.fa_setup_seconds = 0.0
         if not self.p_assembly:
             t_fa = time.perf_counter()
-            if opt.fa_assembled:
-                Mel = aop.h1_mass_element_matrices(
-                    massD_cpu, self._tables_cpu["H1B"], d)
-                self._h1_csr = aop.to_csr(Mel.numpy(), self.h1.gather,
-                                          self.ndof, self.device)
+            Mel = aop.h1_mass_element_matrices(
+                massD_cpu, self._tables_cpu["H1B"], d)
+            self._h1_csr = aop.to_csr(Mel.numpy(), self.h1.gather,
+                                      self.ndof, self.device)
             Me = mop.l2_mass_matrices(massD_cpu, self._tables_cpu["L2B"], d)
             self.Me_inv = self._dev(torch.tensor(np.linalg.inv(Me.numpy()),
                                                  dtype=dtype))
@@ -466,7 +462,7 @@ class Hydro:
         blast_energy / 2^dim.
         """
         mesh, opt, d = self.mesh, self.opt, self.dim
-        center = np.asarray(opt.blast_position[:d])
+        center = np.asarray(_BLAST_POSITION[:d])
         dist = np.linalg.norm(mesh.verts - center[None, :], axis=1)
         v_idx = int(np.argmin(dist))
         out = np.zeros((self.NE, self.ld))
@@ -734,18 +730,14 @@ class Hydro:
     def _cg_velocity_fa(self, rhs):
         """FA velocity solve: ONE coupled Jacobi-PCG over all d*ndof
         unknowns (laghos_solver.cpp:400-439), through the assembled sparse
-        mass (or, with fa_assembled=False, the matrix-free one), so one
-        residual and one iteration count cover every component."""
+        mass, so one residual and one iteration count cover every
+        component."""
         d = self.dim
 
-        if self._h1_csr is not None:
-            def apply_flat(u):
-                y = aop.csr_apply(self._h1_csr, u.reshape(d, -1))
-                return torch.where(self.ess_mask_t, torch.zeros_like(y),
-                                   y).reshape(1, -1)
-        else:
-            def apply_flat(u):
-                return self._h1_apply_bc(u.reshape(d, -1)).reshape(1, -1)
+        def apply_flat(u):
+            y = aop.csr_apply(self._h1_csr, u.reshape(d, -1))
+            return torch.where(self.ess_mask_t, torch.zeros_like(y),
+                               y).reshape(1, -1)
 
         res = cg(apply_flat, rhs.reshape(1, -1), self.opt.cg_tol,
                  self.opt.cg_max_iter, precond=lambda r: r * self._fa_dinv)

@@ -1,23 +1,27 @@
-"""Full-assembly operators: element matrices and the global sparse mass.
+"""Full assembly: the velocity mass as one global sparse matrix.
 
-The reference's full-assembly (-fa) path assembles the force operator from
-element matrices and the velocity mass as a global matrix once
-(laghos_assembly.cpp:43-78, laghos_solver.cpp:201-221, 413-439).  The
-counterpart of `laghos_tpu.ops.assemble`: per-element dense matrices from
-the same quadrature data, applied element by element, and the scalar H1
-mass coalesced once on the host into a CSR matrix.
+The reference's full-assembly (-fa) path assembles the velocity mass once
+as a global matrix (laghos_solver.cpp:201-221, 413-439).  The counterpart
+of the mass half of `laghos_tpu.ops.assemble`: dense element mass matrices
+of the scalar H1 space from the t=0 quadrature data, coalesced once on the
+host into a CSR matrix.  The force stays partially assembled under -fa, as
+in the JAX package's Hydro (tests/test_torch_fa.py holds the port's force
+to the JAX package's element force matrices).
 
 The CSR matrix is coalesced in NumPy in a fixed order (entries sorted by
 (row, column), duplicates summed in element order) and held on the device
 as a torch sparse CSR tensor with int32 indices.  Its product with the d
 velocity components (`csr_apply`) is a library call, as the JAX package's
 BCOO product is (no Pallas kernel computes it either): one sparse
-matrix-vector product per component.  On the H100 the single
-sparse-times-dense product with the (ndof, d) block was measured not to
-repeat bit for bit (cuSPARSE SpMM: two applies of the same operands
-differ in the last bits) and ~3.5x slower than d matrix-vector products,
-which repeated bit for bit in 200 applies; chip_smoke.py holds a whole
--fa run to bitwise repeatability.
+matrix-vector product (cuSPARSE SpMV) per component, not one
+sparse-times-dense product (SpMM) with the (ndof, d) block.  On the H100,
+on the 3D Sedov rs4 mass (16,974,593 nonzeros; chip_smoke.py phase 8), 0
+of 50 SpMM applies repeated the first bit for bit and one SpMM took 3.3x
+as long as the d SpMVs, which repeated in 50 of 50.  cuSPARSE documents
+no such guarantee for SpMV: its repeatability is observed at the sizes
+tried, and guarded by chip_smoke.py phases 6 (a whole -fa run twice, bit
+for bit) and 8, and by tests/test_torch_kernels.py::
+test_csr_apply_on_card_matches_cpu_and_repeats.
 """
 
 from __future__ import annotations
@@ -37,37 +41,6 @@ def _full_table(B, dim):
     return full
 
 
-def force_element_matrices(sJit, tables, *, dim: int):
-    """Per-element force matrices F_e[i, vd, j] (laghos_assembly.cpp:43-78):
-
-        F_e[i,vd,j] = sum_q dhat_gd phi_i(q) * sJit[gd,vd](q) * psi_j(q)
-
-    sJit (NE, NQ, d, d) indexed [gd, vd]; returns (NE, nd, d, ld)."""
-    H1B, H1G, L2B = tables["H1B"], tables["H1G"], tables["L2B"]
-    NE = sJit.shape[0]
-    PHI = _full_table(L2B, dim)                      # (NQ, ld)
-    grads = []
-    for b in range(dim):
-        full = H1G if b == 0 else H1B
-        for k in range(1, dim):
-            full = torch.kron(H1G if k == b else H1B, full)
-        grads.append(full)
-    G = torch.stack(grads)                           # (dim, NQ, nd)
-    sJ = sJit.reshape(NE, PHI.shape[0], dim, dim)
-    return torch.einsum("gqi,eqgv,qj->eivj", G, sJ, PHI)
-
-
-def force_apply_fa(Fmat, e_b):
-    """F . e through the element matrices: (NE, nd, d)."""
-    return torch.einsum("eivj,ej->eiv", Fmat, e_b)
-
-
-def force_apply_transpose_fa(Fmat, v_e):
-    """F^T . v through the element matrices; v_e (NE, d, nd) ->
-    (NE, ld)."""
-    return torch.einsum("eivj,evi->ej", Fmat, v_e)
-
-
 def h1_mass_element_matrices(D, B, dim):
     """Dense element mass matrices of the scalar H1 space,
     M_e[i,j] = sum_q phi_i(q) phi_j(q) D(e,q): (NE, nd, nd)."""
@@ -77,12 +50,13 @@ def h1_mass_element_matrices(D, B, dim):
 
 def to_csr(elem_mats, gather, ndof, device="cpu"):
     """Assemble element matrices (NE, nd, nd) over the gather map (NE, nd)
-    into a global (ndof, ndof) CSR matrix on `device`.
+    into a global (ndof, ndof) CSR matrix on `device`, its values in the
+    element matrices' dtype.
 
     The coalescing runs once, on the host: entries are sorted stably by
     (row, column) and duplicates summed in element order, so the values
     do not depend on the device.  Indices are int32."""
-    M = np.asarray(elem_mats, dtype=np.float64)
+    M = np.asarray(elem_mats)
     g = np.asarray(gather, dtype=np.int64)
     rows = np.broadcast_to(g[:, :, None], M.shape).reshape(-1)
     cols = np.broadcast_to(g[:, None, :], M.shape).reshape(-1)

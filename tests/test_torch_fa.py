@@ -26,7 +26,7 @@ from laghos_tpu_torch import data as tdata
 from laghos_tpu_torch.fem import basis as tbasis
 from laghos_tpu_torch.fem import mesh as tmesh
 from laghos_tpu_torch.fem import space as tspace
-from laghos_tpu_torch.golden import GOLDEN, line, run_row
+from laghos_tpu_torch.golden import GOLDEN, NO_REF_MESH, line, run_row
 from laghos_tpu_torch.hydro import Hydro as THydro
 from laghos_tpu_torch.hydro import Options as TOptions
 from laghos_tpu_torch.interop import hydro_arrays, state_to_numpy
@@ -53,7 +53,9 @@ def _meshes(dim, rs):
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_fa_operators_match_jax_and_pa(dim):
-    """Element force and mass matrices, their applies, and the assembled
+    """The port's force applies (partially assembled under -fa, as in both
+    packages' Hydro) against the JAX package's element force matrices and
+    their applies, at 1e-11; the element mass matrices and the assembled
     CSR mass product against the JAX package's assemble functions, its
     BCOO product and the port's own PA apply, at 1e-11."""
     mt, _ = _meshes(dim, 1)
@@ -71,21 +73,15 @@ def test_fa_operators_match_jax_and_pa(dim):
           "L2B": torch.tensor(l2.B)}
     tj = {k: jnp.asarray(v.numpy()) for k, v in tt.items()}
 
-    F_t = tassemble.force_element_matrices(torch.tensor(sJ), tt, dim=dim)
     F_j = jassemble.force_element_matrices(jnp.asarray(sJ), tj, dim=dim)
-    assert _rel(F_t.numpy(), F_j) <= 1e-13
-    fe_t = tassemble.force_apply_fa(F_t, torch.tensor(e))
-    assert _rel(fe_t.numpy(), jassemble.force_apply_fa(F_j, jnp.asarray(e))
-                ) <= 1e-13
+    fe_j = np.asarray(jassemble.force_apply_fa(F_j, jnp.asarray(e)))
     pa = tforce.force_mult(torch.tensor(e), torch.tensor(sJ), tt, dim=dim,
                            ftz_eps2=0.0)
-    assert _rel(fe_t.numpy().transpose(0, 2, 1), pa.numpy()) <= 1e-11
-    ft_t = tassemble.force_apply_transpose_fa(F_t, torch.tensor(v_e))
-    assert _rel(ft_t.numpy(), jassemble.force_apply_transpose_fa(
-        F_j, jnp.asarray(v_e))) <= 1e-13
+    assert _rel(fe_j.transpose(0, 2, 1), pa.numpy()) <= 1e-11
+    ft_j = jassemble.force_apply_transpose_fa(F_j, jnp.asarray(v_e))
     pa_t = tforce.force_mult_transpose(torch.tensor(v_e), torch.tensor(sJ),
                                        tt, dim=dim)
-    assert _rel(ft_t.numpy(), pa_t.numpy()) <= 1e-11
+    assert _rel(ft_j, pa_t.numpy()) <= 1e-11
     assert _rel(pa_t.numpy(), jforce.force_mult_transpose(
         jnp.asarray(v_e), jnp.asarray(sJ), tj, dim=dim)) <= 1e-13
 
@@ -179,13 +175,7 @@ def test_fa_coupled_cg_matches_jax(dim):
     x_j, it_j = hj._jcg_v(jnp.asarray(b))
     assert int(it_t) == int(it_j)
     assert _rel(x_t.numpy(), x_j) <= 1e-9
-    # the same coupled CG through the matrix-free mass
-    # (fa_assembled=False), and the PA path's per-component CG
-    x_mf, it_mf = THydro(mt, TOptions(problem=1, p_assembly=False,
-                                      fa_assembled=False, cg_tol=1e-10),
-                         device="cpu")._cg_velocity(torch.tensor(b))
-    assert int(it_mf) == int(it_t)
-    assert _rel(x_mf.numpy(), x_t.numpy()) <= 1e-12
+    # against the PA path's per-component CG
     x_pa, _ = THydro(mt, TOptions(problem=1, cg_tol=1e-10,
                                   precond="jacobi"),
                      device="cpu")._cg_velocity(torch.tensor(b))
@@ -220,10 +210,55 @@ def test_baseline_row5_through_cli():
     assert r["run"].hydro.dim == 1 and not r["run"].hydro.p_assembly
 
 
+def _row7_hydros(**opt):
+    """Both packages' Hydro for BASELINE row 7's command line, `-p 3 -m
+    box01_hex -rs 1 -pa` (Q2-Q1, the CLIs' Jacobi), on the built-in
+    box01_hex, with `opt` on top: the lattice path in both."""
+    mt, mj = tdata.get_mesh("box01_hex"), jdata.get_mesh("box01_hex")
+    mt, mj = tmesh.uniform_refine(mt), jmesh.uniform_refine(mj)
+    opt = dict(problem=3, precond="jacobi", **opt)
+    ht = THydro(mt, TOptions(**opt), device="cpu")
+    hj = JHydro(mj, JOptions(**opt))
+    assert ht._lat is not None
+    return ht, hj
+
+
+def test_row7_builtin_mesh_prefix_matches_jax():
+    """BASELINE row 7 has no reference mesh in the repository (its
+    built-in box01_hex stands in for the reference's box file, so
+    golden.py holds it to nothing).  Its first 50 step attempts in both
+    packages (40 accepted, ten rejected and repeated) at -cgt 1e-10:
+    steps, t and L2 CG counts equal, states at 1e-12.  The H1 CG totals
+    may differ by one, where a solve's stopping test ties at round-off
+    (ROADMAP C2).  At the row's own -cgt 1e-8 the states agree only above
+    1e-11: an iterate stopped early carries the round-off of its
+    recurrence."""
+    assert NO_REF_MESH == {7}
+    ht, hj = _row7_hydros(cg_tol=1e-10)
+    rt = driver.run(ht, t_final=5.0, max_steps=49, vis_steps=10**6)
+    rj = jdriver.run(hj, t_final=5.0, max_steps=49, vis_steps=10**6)
+    assert rt.steps == rj.steps == 40
+    assert rt.l2_iters == rj.l2_iters
+    assert abs(rt.h1_iters - rj.h1_iters) <= 1
+    assert rt.t == pytest.approx(rj.t, rel=1e-14)
+    Sn = state_to_numpy(rt.S)
+    for k in ("x", "v", "e"):
+        assert _rel(Sn[k], rj.S[k]) <= 1e-12, k
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("row", sorted(GOLDEN))
 def test_golden_rows_cpu(row):
     """All nine BASELINE rows through `laghos_tpu_torch.golden` on the
-    CPU (minutes each)."""
+    CPU (minutes each).  Row 7, without its reference mesh, against the
+    JAX package's run of the same command on the same built-in mesh: step
+    count and printed dt equal, |e| at 1e-9."""
     r = run_row(row, device="cpu")
-    assert r["ok"], line(r)
+    if row not in NO_REF_MESH:
+        assert r["ok"], line(r)
+        return
+    assert r["ok"] is None, line(r)
+    rj = jdriver.run(_row7_hydros()[1], t_final=5.0, vis_steps=100)
+    assert r["steps"] == rj.steps, line(r)
+    assert f"{r['dt']:.6f}" == f"{rj.dt:.6f}", line(r)
+    assert abs(r["e_norm"] - rj.e_norm) / rj.e_norm < 1e-9, line(r)

@@ -386,8 +386,11 @@ FLAG_CASES = {
     "dtol": ["-dim", "2", "-dtol", "1e-10"],
     "fa-2d": ["-dim", "2", "-fa"],
     "fa-3d": ["-dim", "3", "-fa"],
+    "fa-f32": ["-dim", "2", "-fa", "--dtype", "f32"],
     # Sod repeats its first steps: 11 attempts give a few accepted ones
     "dim1": ["-dim", "1", "-nx", "8", "-p", "2", "-ms", "10"],
+    "dim1-f32": ["-dim", "1", "-nx", "8", "-p", "2", "-ms", "10",
+                 "--dtype", "f32"],
     "iv": ["-dim", "2", "-p", "4", "-iv"],
     "mesh-file": None,
     "mb": ["-dim", "2", "-mb"],
@@ -411,9 +414,13 @@ def test_cli_ported_flags_run(case, tmp_path, capsys):
         assert h.NE == 12
     if case == "Sx-Sy-Sz":
         assert float(h.S0["x"][0].max()) == 2.0
-    if case.startswith("fa") or case == "dim1":
+    if case.startswith(("fa", "dim1")):
         assert not h.p_assembly and h._lat is None
-    if case == "dim1":
+        assert h._h1_csr.values().dtype == h.dtype
+    if case.endswith("f32"):
+        assert h.dtype == torch.float32
+        assert res.S["v"].dtype == torch.float32
+    if case.startswith("dim1"):
         assert h.dim == 1 and h.NE == 8
     if case == "iv":
         assert h.use_visc
