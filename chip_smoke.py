@@ -48,7 +48,29 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    --restore and 5 more, bit for bit the uninterrupted 10 steps;
 10. the I/O flags on a small card run: -visit -print -k (VTU, PVD, NPZ
    parsed and counted), -mb (the card's peak), -err (a finite density
-   error), --profile (a trace with device kernels).
+   error), --profile (a trace with device kernels);
+11. the device loop: the flagship without -f through the CLI with the
+   host loop and with --device-loop, bit for bit (states, steps, t, dt,
+   norms, CG totals, step lines), then step_ms of each twice, alternating
+   on one Hydro, and the host syncs per accepted step of each
+   (`timing.count_syncs`, in a further run); the
+   gather path at the flagship size (5 steps) and the Ozaki lattice path
+   at rs3 (5 steps) likewise bit for bit;
+12. solver options on the flagship: --precond schwarz for 5 steps (|e|
+   within 1e-10 of the Jacobi run's at step 5, its iterations and setup
+   printed), then `cg_warm_start` for the 21 steps (the same steps, |e|
+   within 1e-6 of the cold run, no more H1 iterations: at -cgt 1e-11 the
+   force changes between the stages too much for the previous stage's
+   acceleration to save one), and the JAX package's own warm-start gate
+   (3D Sedov rs1, RK4, 12 steps: fewer iterations);
+13. `batch.sweep` of four blast energies on the flagship mesh, 11 step
+   attempts each, every member bit for bit its separate card run;
+14. the simplex solver: 3D Sedov on cube01_tet refined three times
+   (24,576 tets, Q2-Q1, 120 q-points a tet), RK2Avg, 10 steps twice
+   (drift <= 1e-11, bitwise equal), its assembly's repeatability beside
+   an index_add_ version (printed), then once through the CLI's simplex
+   route.  The simplex path runs no hand-written kernel, as the JAX
+   package's runs no Pallas kernel.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -97,6 +119,19 @@ CKPT = ["-p", "1", "-dim", "3", "-rs", "3", "-s", "7", "-cgt", "1e-11",
 # a small card run for the I/O flags of phase 10
 IO_RUN = ["-p", "1", "-dim", "3", "-rs", "1", "-ms", "4", "-vs", "5", "-mb",
           "-err", "-d", "cuda"]
+# the flagship without -f (the device loop takes no phase timing), and
+# the same with --precond schwarz for 5 steps; the Ozaki lattice path at
+# rs3 for 5 steps, for the device-loop phase
+FLAGSHIP_RUN = [a for a in FLAGSHIP if a != "-f"]
+SCHWARZ_RUN = [a for a in FLAGSHIP_RUN] + ["--precond", "schwarz"]
+SCHWARZ_RUN[SCHWARZ_RUN.index("-ms") + 1] = "4"
+OZAKI_RUN = CKPT + ["-ms", "4", "--ozaki"]
+# 3D Sedov on cube01_tet refined 3 times (24,576 tets): 10 steps in
+# SimplexHydro, a few through the CLI's simplex route (RK4, the JAX CLI's)
+SIMPLEX_RS = 3
+SIMPLEX_STEPS = 10
+SIMPLEX_CLI = ["-p", "1", "-m", "cube01_tet", "-rs", str(SIMPLEX_RS),
+               "-cgt", "1e-11", "-ms", "2", "-d", "cuda"]
 # Options of the gather path (the default Options run the lattice path on
 # these Cartesian meshes)
 GATHER = dict(structured_el=False, lattice_ops=False, precond="jacobi")
@@ -1033,6 +1068,357 @@ def phase_io():
     return counts["lattice"]
 
 
+# ----------------------------------------------------------- phase 11 --
+def _same_runs(ra, rb, la, lb, tag):
+    same = all(torch.equal(ra.S[k], rb.S[k]) for k in ra.S)
+    if not (same and la == lb and ra.norms == rb.norms
+            and (ra.steps, ra.t, ra.dt, ra.h1_iters, ra.l2_iters)
+            == (rb.steps, rb.t, rb.dt, rb.h1_iters, rb.l2_iters)):
+        raise AssertionError(f"{tag}: the device loop differs from the "
+                             "host loop")
+
+
+def _loop_pair(argv, tag):
+    """The CLI run `argv` with the host loop, then with --device-loop
+    (launch counts reset before and read after each): states bit for
+    bit, the same steps, t, dt, norms, CG totals and step lines."""
+    runs = []
+    for extra in ([], ["--device-loop"]):
+        run, counts, wall, out = drive(argv + extra)
+        h = run.hydro
+        _only(counts, "lattice", h.qupdate_calls,
+              f"{tag}{' device loop' if extra else ''}", h.oz is not None)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("step", "Repeating"))]
+        runs.append((run, counts, wall, lines))
+    (a, _, _, la), (b, _, _, lb) = runs
+    _same_runs(a.result, b.result, la, lb, tag)
+    return runs
+
+
+def _gather_pair(dev):
+    """The gather path at the flagship size through driver.run, host loop
+    then device loop on one Hydro: bit for bit.  Returns the element
+    kernel launches."""
+    import contextlib
+    import io
+
+    from laghos_tpu_torch import driver
+
+    h = flagship_hydro(dev, cg_tol=1e-11, **GATHER)
+    out = []
+    for dl in (False, True):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        calls = h.qupdate_calls
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            r = driver.run(h, t_final=0.6, max_steps=GATHER_STEPS - 1,
+                           vis_steps=2, verbose=True, device_loop=dl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        _only(counts, "element", h.qupdate_calls - calls,
+              f"11 gather{' device loop' if dl else ''}")
+        out.append((r, buf.getvalue().splitlines(), wall, counts))
+    (ra, la, wa, ca), (rb, lb, wb, cb) = out
+    _same_runs(ra, rb, la, lb, "11 gather")
+    log(f"[11 device loop] gather: {rb.steps} steps bitwise equal to the "
+        f"host loop (step lines too), step_ms host {1e3 * wa / ra.steps:.3f}"
+        f" / device {1e3 * wb / rb.steps:.3f} (untimed), CG-H1 "
+        f"{rb.h1_iters}, |e| {rb.e_norm!r}, element kernel launches "
+        f"{ca['element']} + {cb['element']}")
+    del h
+    return ca["element"] + cb["element"]
+
+
+def _syncs(h, steps, device_loop):
+    """Host syncs per accepted step of `steps` steps of `h` through
+    driver.run, counted on the card (timing.count_syncs)."""
+    from laghos_tpu_torch import driver
+    from laghos_tpu_torch.timing import count_syncs
+
+    torch.cuda.synchronize()
+    with count_syncs() as c:
+        r = driver.run(h, t_final=0.6, max_steps=steps - 1, vis_steps=5,
+                       device_loop=device_loop)
+    return c["syncs"], r.steps
+
+
+def _timed(h, steps, device_loop):
+    """(step_ms, lattice launches) of `steps` steps of `h` through
+    driver.run, untimed inside (no phase fences), a sync at each end."""
+    from laghos_tpu_torch import driver
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = driver.run(h, t_final=0.6, max_steps=steps - 1, vis_steps=5,
+                   device_loop=device_loop)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / r.steps, read_counts()
+
+
+def phase_device_loop(dev):
+    """The flagship (lattice Jacobi) through the CLI with the host loop
+    and with --device-loop, bit for bit, with step_ms and host syncs per
+    accepted step of both; the gather path and the Ozaki lattice path
+    likewise for a few steps.  Returns (the host run's RunResult, its
+    setup seconds, launches by kernel)."""
+    launches = {("lattice", F64): 0}
+    runs = _loop_pair(FLAGSHIP_RUN, "11 flagship")
+    for (run, counts, wall, _), name in zip(runs, ("host", "device")):
+        res = run.result
+        launches[("lattice", F64)] += counts["lattice"]
+        log(f"[11 device loop] flagship {name} loop through the CLI: "
+            f"{res.steps} steps, step_ms "
+            f"{1e3 * res.timings['total'] / res.steps:.3f} (untimed), "
+            f"CG-H1 {res.h1_iters}, CG-L2 {res.l2_iters}, |e| "
+            f"{res.e_norm!r}; lattice kernel launches {counts['lattice']}")
+    log("[11 device loop] flagship: host and device loops bitwise equal "
+        "(states, steps, t, dt, norms, CG totals, step lines)")
+    ref, setup = runs[0][0].result, runs[0][0].setup_seconds
+    h = runs[0][0].hydro
+    del runs
+    # step_ms interleaved on one Hydro (the host's speed drifts within a
+    # call), then the host syncs of each loop in a counted run
+    ms = {False: [], True: []}
+    for dl in (False, True, False, True):
+        t, counts = _timed(h, FLAGSHIP_STEPS, dl)
+        ms[dl].append(t)
+        launches[("lattice", F64)] += counts["lattice"]
+    syncs = {dl: _syncs(h, FLAGSHIP_STEPS, dl) for dl in (False, True)}
+    for dl, name in ((False, "host"), (True, "device")):
+        n, steps = syncs[dl]
+        log(f"[11 device loop] flagship {name} loop: step_ms "
+            f"{ms[dl][0]:.3f}, {ms[dl][1]:.3f} (its two of four runs, "
+            f"alternating, untimed); host syncs {n} over {steps} steps "
+            f"({n / steps:.2f} per accepted step, setup and pause reads "
+            "included)")
+    if not 0 < syncs[True][0] < syncs[False][0]:
+        raise AssertionError("the device loop did not cut the host syncs")
+    del h
+    torch.cuda.empty_cache()
+    launches[("element", F64)] = _gather_pair(dev)
+    torch.cuda.empty_cache()
+    runs = _loop_pair(OZAKI_RUN, "11 ozaki")
+    for run, counts, wall, _ in runs:
+        launches[("lattice", F64)] += counts["lattice"]
+        launches["split"] = launches.get("split", 0) + counts["split"]
+    r = runs[1][0].result
+    log(f"[11 device loop] ozaki rs3: {r.steps} steps bitwise equal to the "
+        f"host loop, wall host {runs[0][2]:.3f} / device {runs[1][2]:.3f} s "
+        f"(setup included), |e| {r.e_norm!r}, kernel launches "
+        f"{runs[1][1]}")
+    del runs
+    torch.cuda.empty_cache()
+    return ref, setup, launches
+
+
+# ----------------------------------------------------------- phase 12 --
+def phase_solver_options(dev, ref, ref_setup):
+    """--precond schwarz on the flagship for 5 steps (|e| within 1e-10 of
+    Jacobi's at step 5), then cg_warm_start over the flagship's 21 steps
+    (the same steps, |e| within 1e-6 of the cold run's, no more H1
+    iterations) and on the JAX package's warm-start gate (fewer).
+    Returns the lattice kernel launches."""
+    from laghos_tpu_torch import driver
+
+    run, counts, wall, _ = drive(SCHWARZ_RUN)
+    res, h = run.result, run.hydro
+    _only(counts, "lattice", h.qupdate_calls, "12 schwarz")
+    n = launches = counts["lattice"]
+    rel = abs(res.norms[5] - ref.norms[5]) / ref.norms[5]
+    log(f"[12 schwarz] {res.steps} steps, {res.h1_iters / (6 * res.steps):.2f}"
+        f" H1 iterations per component solve (Jacobi "
+        f"{ref.h1_iters / (6 * ref.steps):.2f}), setup {run.setup_seconds:.3f}"
+        f" s (Jacobi {ref_setup:.3f} s), step_ms "
+        f"{1e3 * res.timings['total'] / res.steps:.3f}; |e| at step 5 rel "
+        f"{rel:.3e} to Jacobi's (limit 1e-10); lattice kernel launches {n}")
+    if h._schwarz is None or not rel <= 1e-10:
+        raise AssertionError("schwarz: wrong preconditioner or |e|")
+    del run, h
+    h = flagship_hydro(dev, cg_tol=1e-11, precond="jacobi",
+                       cg_warm_start=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = driver.run(h, t_final=0.6, max_steps=FLAGSHIP_STEPS - 1,
+                     vis_steps=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    _only(counts, "lattice", h.qupdate_calls, "12 warm start")
+    launches += counts["lattice"]
+    rel = abs(res.e_norm - ref.e_norm) / ref.e_norm
+    log(f"[12 warm start] {res.steps} steps, H1 iterations {res.h1_iters} "
+        f"warm against {ref.h1_iters} cold "
+        f"({res.h1_iters / (6 * res.steps):.2f} against "
+        f"{ref.h1_iters / (6 * ref.steps):.2f} per component solve), L2 "
+        f"{res.l2_iters} against {ref.l2_iters}; |e| rel {rel:.3e} to the "
+        f"cold run (limit 1e-6); step_ms {1e3 * wall / res.steps:.3f}")
+    if not (res.steps == ref.steps and rel <= 1e-6
+            and res.h1_iters <= ref.h1_iters):
+        raise AssertionError("warm start: steps, |e| or iterations")
+    del h
+    # the JAX package's own warm-start gate (tests/test_precond.py): 3D
+    # Sedov rs1, E0 2, RK4, -cgt 1e-12, 12 steps: fewer iterations warm
+    from laghos_tpu_torch.fem import mesh as fmesh
+    from laghos_tpu_torch.hydro import Hydro, Options
+
+    its = {}
+    for warm in (False, True):
+        m = fmesh.uniform_refine(fmesh.cartesian(3, (2, 2, 2),
+                                                 (1.0, 1.0, 1.0)))
+        hw = Hydro(m, Options(problem=1, blast_energy=2.0, ode_solver=4,
+                              cg_tol=1e-12, precond="jacobi",
+                              cg_warm_start=warm), device=dev)
+        reset_counts()
+        r = driver.run(hw, t_final=0.6, max_steps=12)
+        launches += read_counts()["lattice"]
+        its[warm] = (r.h1_iters, r.steps, r.e_norm)
+    rel = abs(its[True][2] - its[False][2]) / its[False][2]
+    log(f"[12 warm start] the JAX package's gate (3D Sedov rs1, RK4, -cgt "
+        f"1e-12, 13 steps): H1 iterations {its[True][0]} warm against "
+        f"{its[False][0]} cold, |e| rel {rel:.3e}")
+    if not (its[True][0] < its[False][0] and its[True][1] == its[False][1]
+            and rel <= 1e-6):
+        raise AssertionError("warm start saves no iteration on the JAX "
+                             "package's gate")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------- phase 13 --
+SWEEP_ENERGIES = (0.25, 0.5, 1.0, 2.0)
+
+
+def phase_sweep(dev):
+    """batch.sweep of four blast energies on the flagship mesh for 11
+    step attempts each, every member bit for bit its separate run of
+    driver.run on the card.  Returns the lattice kernel launches."""
+    from laghos_tpu_torch import batch, driver
+
+    h = flagship_hydro(dev, cg_tol=1e-11, precond="jacobi")
+    Sb = batch.blast_states(h, SWEEP_ENERGIES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = batch.sweep(h, Sb, t_final=0.6, max_steps=10)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    _only(counts, "lattice", h.qupdate_calls, "13 sweep")
+    for i, E in enumerate(SWEEP_ENERGIES):
+        r = driver.run(h, t_final=0.6, max_steps=10, vis_steps=10**6,
+                       S_init={k: v[i].clone() for k, v in Sb.items()})
+        same = all(torch.equal(out["S"][k][i], r.S[k]) for k in r.S)
+        if not (same and float(out["t"][i]) == r.t
+                and int(out["h1_iters"][i]) == r.h1_iters
+                and not bool(out["crashed"][i])):
+            raise AssertionError(f"sweep member E0 = {E} differs from its "
+                                 "separate run")
+    log(f"[13 sweep] {len(SWEEP_ENERGIES)} blast energies "
+        f"{SWEEP_ENERGIES} on the flagship mesh, 11 step attempts each: "
+        f"{secs:.3f} s ({1e3 * secs / int(out['steps'].sum()):.3f} ms per "
+        f"attempt); steps {out['steps'].tolist()}, t "
+        f"{[round(x, 6) for x in out['t'].tolist()]}, CG-H1 "
+        f"{out['h1_iters'].tolist()}; every member bitwise equal to its "
+        f"separate card run; lattice kernel launches {counts['lattice']}")
+    del h, Sb, out
+    torch.cuda.empty_cache()
+    return counts["lattice"]
+
+
+# ----------------------------------------------------------- phase 14 --
+def _index_add_check(th):
+    """The simplex mass apply with the JAX package's scatter-add
+    (index_add_, atomics on the card) beside the port's incidence gather:
+    how many of 50 applies repeat the first bit for bit, and each one's
+    device time.  Printed, not asserted for index_add_."""
+    from laghos_tpu_torch.timing import device_ms
+
+    u = th.S0["x"] + 0.5
+    flat = th.gather.reshape(-1)
+
+    def scatter():
+        ye = th._mass_e(u)
+        out = torch.zeros((3, th.ndof), dtype=u.dtype, device=u.device)
+        return out.index_add_(1, flat, ye.reshape(3, -1))
+
+    def gather():
+        return th._assemble(th._mass_e(u))
+
+    res = {}
+    for name, fn in (("incidence gather", gather), ("index_add_", scatter)):
+        y = fn().clone()
+        same = sum(torch.equal(fn(), y) for _ in range(50))
+        res[name] = (same, device_ms(fn), y)
+        log(f"[14 simplex] mass apply with {name} assembly: {same} of 50 "
+            f"applies bitwise equal to the first, {res[name][1]:.4f} ms")
+    diff = float((res["index_add_"][2] - res["incidence gather"][2]).abs()
+                 .max() / res["incidence gather"][2].abs().max())
+    log(f"[14 simplex] index_add_ vs incidence gather: rel {diff:.3e}")
+    if res["incidence gather"][0] != 50:
+        raise AssertionError("the simplex assembly does not repeat")
+
+
+def phase_simplex(dev):
+    """3D Sedov on cube01_tet refined 3 times (24,576 tets, Q2-Q1, 120
+    q-points a tet) with RK2Avg for 10 step attempts twice (drift <= 1e-11,
+    bitwise equal), the assembly's repeatability against index_add_, then
+    once through the CLI's simplex route."""
+    from laghos_tpu_torch import data
+    from laghos_tpu_torch.fem import simplex_mesh as fsm
+    from laghos_tpu_torch.hydro import Options
+    from laghos_tpu_torch.simplex_hydro import SimplexHydro
+
+    t0 = time.perf_counter()
+    m = data.get_mesh("cube01_tet")
+    for _ in range(SIMPLEX_RS):
+        m = fsm.uniform_refine_tet(m)
+    th = SimplexHydro(m, Options(problem=1, ode_solver=7, cg_tol=1e-11),
+                      device=dev)
+    setup = time.perf_counter() - t0
+    finals = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        S, t, steps = th.run(0.6, max_steps=SIMPLEX_STEPS - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finals.append(S)
+    peak = torch.cuda.max_memory_allocated()
+    (ie0, ke0), (ie, ke) = th.energies(th.S0), th.energies(S)
+    E0, E1 = float(ie0 + ke0), float(ie + ke)
+    drift = abs(E1 - E0) / abs(E0)
+    same = all(torch.equal(finals[0][k], finals[1][k]) for k in S)
+    en = float(torch.sqrt(torch.sum(S["e"] * S["e"])))
+    log(f"[14 simplex] cube01_tet rs{SIMPLEX_RS}: NE {th.NE}, NQ {th.NQ}, "
+        f"{th.NE * th.NQ} q-points, {th.ndof} H1 nodes, setup {setup:.3f} "
+        f"s; {steps} steps to t {t:.6f}, step_ms {1e3 * wall / steps:.3f} "
+        f"(untimed), CG-H1 {th.h1_iters} coupled iterations "
+        f"({th.h1_iters / (2 * steps):.2f} per solve), |e| {en!r}, drift "
+        f"{drift:.3e} (limit 1e-11), peak device memory "
+        f"{peak / 2**30:.3f} GiB; two runs bitwise equal: {same}")
+    if not (steps > 0 and same and drift <= 1e-11 and math.isfinite(en)):
+        raise AssertionError("simplex run: steps, drift or repeatability")
+    _index_add_check(th)
+    del th, finals, S
+    torch.cuda.empty_cache()
+    run, counts, wall, out = drive(SIMPLEX_CLI)
+    last = out.strip().splitlines()[-1]
+    res = run.result
+    log(f"[14 simplex] CLI {' '.join(SIMPLEX_CLI)}: {last!r}; {res.steps} "
+        f"steps in {wall:.3f} s (setup {run.setup_seconds:.3f} s), CG-H1 "
+        f"{res.h1_iters}; hand-kernel launches {counts}")
+    if not (last.startswith("step") and math.isfinite(res.e_norm)
+            and not any(counts.values())):
+        raise AssertionError("the CLI's simplex route")
+
+
 def main():
     t0 = time.perf_counter()
     dev = phase_device()
@@ -1045,6 +1431,12 @@ def main():
     launches[("element", F64)] += n_fa
     launches[("lattice", F64)] += phase_checkpoint() + phase_io()
     launches[("element", F64)] += phase_repeat(dev, fa_res)
+    ref, ref_setup, more = phase_device_loop(dev)
+    for key, n in more.items():
+        launches[key] = launches.get(key, 0) + n
+    launches[("lattice", F64)] += phase_solver_options(dev, ref, ref_setup)
+    launches[("lattice", F64)] += phase_sweep(dev)
+    phase_simplex(dev)
     # launches come from the main-path runs only; the packed layout is on
     # none of them
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",

@@ -6,13 +6,15 @@ command lines run as written, e.g.:
     python -m laghos_tpu_torch -p 2 -m segment01 -rs 5 -tf 0.2 -fa
 Every single-device flag of `laghos_tpu.cli` runs: partial (-pa) and full
 (-fa) assembly in 1D, 2D and 3D, the Cartesian mesh of -nx/-ny/-nz and
--Sx/-Sy/-Sz or a mesh file or built-in geometry (-m), the whole-lattice
-operators on Cartesian meshes, --precond jacobi|auto|kron, the Ozaki f64
-mode (--ozaki), the output flags (-visit, -print, -vis, -k), -mb, -err,
---checkpoint/--restore, --debug-nans and --profile.  The flags of the
-modules not ported yet (distribution, the on-device loop, AMR) and the TPU
-knob --mxu are accepted by the parser and then refused with
-NotImplementedError naming the ROADMAP item that ports them.
+-Sx/-Sy/-Sz or a mesh file or built-in geometry (-m; triangle and
+tetrahedron meshes such as cube01_tet run the simplex solver), the
+whole-lattice operators on Cartesian meshes, --precond
+jacobi|auto|kron|schwarz, the on-device adaptive-dt loop (--device-loop),
+the Ozaki f64 mode (--ozaki), the output flags (-visit, -print, -vis, -k),
+-mb, -err, --checkpoint/--restore, --debug-nans and --profile.  The flags
+of the modules not ported yet (distribution, AMR) and the TPU knob --mxu
+are accepted by the parser and then refused with NotImplementedError
+naming the ROADMAP item that ports them.
 
 Where the JAX package turns on `jax_debug_nans`, --debug-nans here checks
 the outputs of every phase of the step for non-finite values and raises
@@ -35,6 +37,7 @@ import torch
 from . import data, driver
 from .device import setup
 from .fem import mesh as fmesh
+from .fem import simplex_mesh as fsm
 from .hydro import Hydro, Options
 from .timing import print_timing, run_metadata
 from .verify import (CHECKS_TABLE, OZAKI_CHECKS_EPS, run_checks,
@@ -52,7 +55,6 @@ _NOT_PORTED = [
     (("-amr", "--enable-amr"), "amr", False, "A13"),
     (("-rt", "--ref-threshold"), "ref_threshold", True, "A13"),
     (("-dt", "--deref-threshold"), "deref_threshold", True, "A13"),
-    (("--device-loop",), "device_loop", False, "A8"),
     (("--mxu",), "mxu", True, "'Not to port' (a TPU MXU knob)"),
 ]
 
@@ -139,8 +141,15 @@ def build_parser():
                    help="velocity CG preconditioner: jacobi (reference "
                         "parity, the default), kron (per-axis Kronecker "
                         "inverse on Cartesian meshes), auto (kron where "
-                        "available, else jacobi); schwarz is not ported "
-                        "yet (ROADMAP A8)")
+                        "available, else jacobi), schwarz (element-block "
+                        "additive Schwarz)")
+    p.add_argument("--device-loop", action="store_true", dest="device_loop",
+                   help="keep the adaptive-dt control flow on the device "
+                        "(t, dt and the step counters as device scalars, "
+                        "the CGs reading their convergence flag around the "
+                        "previous solve's stop): the host loop's trajectory and "
+                        "lines bit for bit, with fewer host syncs; ignored "
+                        "with -f")
     p.add_argument("--checkpoint", default=None,
                    help="write an NPZ checkpoint of (S, t, dt, step) here "
                         "every vis step")
@@ -169,7 +178,18 @@ def _refuse_unported(args):
                 f"{flags[0]} is not ported yet (ROADMAP {item})")
 
 
-def make_mesh(args) -> fmesh.Mesh:
+def _refine(m):
+    """Uniform refinement of the mesh's own family: tensor meshes, or
+    triangles (1:4) and tetrahedra (1:8)."""
+    if isinstance(m, fsm.TriMesh):
+        return fsm.uniform_refine_tri(m)
+    if isinstance(m, fsm.TetMesh):
+        return fsm.uniform_refine_tet(m)
+    return fmesh.uniform_refine(m)
+
+
+def make_mesh(args):
+    """The run's mesh: a tensor `Mesh`, or a `TriMesh` / `TetMesh`."""
     if args.mesh == "default":
         dim = args.dim
         m = fmesh.cartesian(dim, (args.nx, args.ny, args.nz),
@@ -177,8 +197,36 @@ def make_mesh(args) -> fmesh.Mesh:
     else:
         m = data.get_mesh(args.mesh)
     for _ in range(args.rs):
-        m = fmesh.uniform_refine(m)
+        m = _refine(m)
     return m
+
+
+def _main_simplex(args, m, device, t_setup) -> CliRun:
+    """A triangle or tetrahedron mesh runs `SimplexHydro` with the options
+    of the JAX package's simplex route (its RK4 or RK2Avg default, f64)
+    and prints its last line; the other output flags do not apply."""
+    from .simplex_hydro import SimplexHydro
+
+    th = SimplexHydro(m, Options(
+        problem=args.problem, order_v=args.order_v, order_e=args.order_e,
+        order_q=args.order_q, cfl=args.cfl, cg_tol=args.cg_tol,
+        cg_max_iter=args.cg_max_iter), device=device)
+    setup_seconds = time.perf_counter() - t_setup
+    ie, ke = th.energies(th.S0)
+    t0 = time.perf_counter()
+    S, t, steps = th.run(args.t_final, max_steps=args.max_steps,
+                         verbose=True)
+    en = float(torch.sqrt(torch.sum(S["e"] * S["e"])))
+    wall = time.perf_counter() - t0
+    print(f"step {steps:5d},\tt = {t:.4f},\t|e| = {en:.10e}")
+    ie1, ke1 = th.energies(S)
+    res = driver.RunResult(
+        steps=steps, t=t, dt=th.dt, e_norm=en,
+        energy_init=float(ie) + float(ke),
+        energy_final=float(ie1) + float(ke1), h1_iters=th.h1_iters,
+        l2_iters=0, quad_steps=steps * th.NE, norms={steps: en},
+        timings={"total": wall}, S=S)
+    return CliRun(res, th, setup_seconds, None)
 
 
 @dataclasses.dataclass
@@ -238,6 +286,8 @@ def main(argv=None) -> CliRun:
     t_setup = time.perf_counter()
     m = make_mesh(args)
     print(f"Number of zones in the serial mesh: {m.num_elems}")
+    if isinstance(m, (fsm.TriMesh, fsm.TetMesh)):
+        return _main_simplex(args, m, device, t_setup)
     opt = Options(
         problem=args.problem, order_v=args.order_v, order_e=args.order_e,
         order_q=args.order_q, cfl=args.cfl, cg_tol=args.cg_tol,
@@ -278,7 +328,8 @@ def main(argv=None) -> CliRun:
                          timing=args.fom, check_steps=check_steps,
                          on_vis=on_vis, S_init=S_init, t_init=t0,
                          dt_init=dt0, step_init=st0,
-                         checkpoint_path=args.checkpoint)
+                         checkpoint_path=args.checkpoint,
+                         device_loop=args.device_loop and not args.fom)
     if args.profile:
         print(f"Profiler trace written to "
               f"{os.path.join(args.profile, 'trace.json')}")

@@ -3,7 +3,9 @@
 Host-side control loop mirroring the reference's main loop
 (laghos.cpp:741-920): `Hydro.advance` does the device work; the scalar dt
 control decisions (one read of dt_est per step) live in Python, as the
-reference keeps them outside its device kernels.
+reference keeps them outside its device kernels.  With `device_loop` the
+control scalars stay on the device instead (`Hydro.run_segment`): the same
+trajectory, bit for bit, with fewer host syncs.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from . import checkpoint
 from .hydro import Hydro
@@ -50,6 +53,7 @@ def run(
     dt_init: Optional[float] = None,
     step_init: int = 1,
     checkpoint_path: Optional[str] = None,
+    device_loop: bool = False,
 ) -> RunResult:
     """Run from S_init (default hydro.S0) at t_init to t_final.
 
@@ -58,10 +62,21 @@ def run(
     q-data instead of reusing the memoized one, as the JAX package's host
     loop does; the trajectory is the uninterrupted run's bit for bit.  At
     every vis step (and the last) `on_vis(step, t, S)` is called and, with
-    checkpoint_path, a snapshot (S, t, dt, step) is written there."""
+    checkpoint_path, a snapshot (S, t, dt, step) is written there.
+
+    `device_loop` runs the control flow on the device (`_run_device_loop`;
+    not with `timing`)."""
     S = hydro.S0 if S_init is None else S_init
     ie, ke = hydro.energies(S)
     energy_init = float(ie) + float(ke)
+    if device_loop:
+        if timing:
+            raise ValueError("the device loop takes no phase timing")
+        return _run_device_loop(
+            hydro, S, energy_init, t_final, max_steps=max_steps,
+            vis_steps=vis_steps, on_vis=on_vis, check_steps=check_steps,
+            verbose=verbose, t_init=t_init, dt_init=dt_init,
+            step_init=step_init, checkpoint_path=checkpoint_path)
 
     t = t_init
     if dt_init is not None:
@@ -153,5 +168,74 @@ def run(
         norms=norms,
         timings={"total": wall},
         timing_data=tim,
+        S=S,
+    )
+
+
+def _run_device_loop(
+    hydro, S, energy_init, t_final, *, max_steps, vis_steps, on_vis,
+    check_steps, verbose, t_init, dt_init, step_init, checkpoint_path,
+) -> RunResult:
+    """The adaptive-dt loop with its control scalars on the device
+    (`Hydro.run_segment`), paused at every vis step, check step and the
+    end of the run, where |e| is read, the step line printed, `on_vis`
+    called and the checkpoint written.  The same trajectory, step numbers,
+    printed lines ("Repeating step" included), `norms` and CG totals as
+    the host loop, bit for bit.  A resumed run (dt_init) rebuilds the
+    memoized stage-1 q-data from S and, as the host loop does, does not
+    count its dt in the first step's estimate."""
+    hydro.current_step = step_init
+    dt0, sJit = hydro.dt_estimate_full(S)
+    dt = dt0 if dt_init is None else float(dt_init)
+    t, ti, steps, count_stage1 = t_init, step_init, 0, False
+    h1_iters = l2_iters = 0
+    norms = {}
+    chk = sorted(check_steps) or [-1]
+    on_reject = (lambda i: print(f"Repeating step {i}")) if verbose else None
+    t0 = time.perf_counter()
+    while True:
+        (S, t, dt, ti_t, steps_t, sJit, cs1, done, crashed, h1a, l2a,
+         pause) = hydro.run_segment(S, t, dt, ti, steps, sJit, count_stage1,
+                                    t_final, max_steps, vis_steps, chk,
+                                    on_reject=on_reject)
+        ti, steps, h1, l2, count_stage1, done, crashed = torch.stack(
+            [ti_t, steps_t, h1a, l2a, cs1.long(), done.long(),
+             crashed.long()]).tolist()
+        h1_iters += h1
+        l2_iters += l2
+        if crashed:
+            raise RuntimeError("The time step crashed!")
+        if not count_stage1:
+            # the segment ended on an accepted step: a pause or the end
+            t_h, dt_h = torch.stack([t, dt]).tolist()
+            en = hydro.e_norm(S)
+            norms[ti - 1] = en
+            if verbose:
+                print(f"step {ti - 1:5d},\tt = {t_h:.4f},\tdt = {dt_h:.6f},"
+                      f"\t|e| = {en:.10e}")
+            if on_vis is not None:
+                on_vis(ti - 1, t_h, S)
+            if checkpoint_path is not None:
+                checkpoint.save(checkpoint_path, S, t_h, dt_h, ti - 1)
+        if done:
+            break
+
+    block(S)
+    wall = time.perf_counter() - t0
+    t, dt = torch.stack([t, dt]).tolist()
+    ie, ke = hydro.energies(S)
+    return RunResult(
+        steps=ti - 1,
+        t=t,
+        dt=dt,
+        e_norm=hydro.e_norm(S),
+        energy_init=energy_init,
+        energy_final=float(ie) + float(ke),
+        h1_iters=h1_iters,
+        l2_iters=l2_iters,
+        quad_steps=(ti - step_init) * hydro.NE,
+        norms=norms,
+        timings={"total": wall},
+        timing_data=None,
         S=S,
     )

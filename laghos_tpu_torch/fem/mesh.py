@@ -6,7 +6,8 @@ MFEM v1.0 and NetGen areamesh2 files), UniformRefinement
 (laghos.cpp:391,446-449), and the boundary-attribute convention
 attr 1/2/3 = fixed-x/y/z (laghos.cpp:1476-1525).
 
-Segments, quads and hexes; simplex files raise (ROADMAP A12).  The mesh is
+Segments, quads and hexes; a simplex file raises SimplexMeshError, and
+fem/simplex_mesh.py reads it (data.get_mesh falls back to it).  The mesh is
 a purely host-side (NumPy) object: after setup, positions live as a torch
 dof tensor and the topology only survives as gather index maps.  Same
 numbering as `laghos_tpu.fem.mesh`, so gather maps agree bitwise.
@@ -53,6 +54,10 @@ class Mesh:
     def corners_lattice(self) -> np.ndarray:
         """Element corner vertex ids in lattice order (x fastest)."""
         return self.elems[:, _CORNER_TO_MFEM[self.dim]]
+
+
+class SimplexMeshError(NotImplementedError):
+    """`load_mfem_mesh` was given a triangle or tetrahedron mesh."""
 
 
 def unify_rows(keys: np.ndarray):
@@ -177,8 +182,8 @@ def load_mfem_mesh(path: str) -> Mesh:
 
     Handles both vertex storage variants of the reference data files:
     inline coordinates, or a trailing linear `nodes` grid function
-    (Ordering 0: all x, then all y, ...).  Simplex meshes raise: their
-    solver is not ported (ROADMAP A12).
+    (Ordering 0: all x, then all y, ...).  A triangle or tetrahedron mesh
+    raises SimplexMeshError: fem/simplex_mesh.py reads those.
     """
     with open(path) as f:
         tokens = []
@@ -241,8 +246,9 @@ def load_mfem_mesh(path: str) -> Mesh:
     if len(geoms) != 1:
         raise NotImplementedError(f"mixed-geometry mesh: {geoms}")
     if geoms & {TRIANGLE, TETRAHEDRON}:
-        raise NotImplementedError(
-            f"{path}: simplex meshes are not ported yet (ROADMAP A12)")
+        raise SimplexMeshError(
+            f"{path}: a simplex mesh; read it with "
+            "fem.simplex_mesh.load_simplex_mesh (data.get_mesh does)")
     e = np.array([v for (_, _, v) in elems], dtype=np.int32)
     bv = np.array([v for (_, v) in bdr], dtype=np.int32).reshape(
         len(bdr), -1)

@@ -108,7 +108,11 @@ class Options:
     precond: str = "auto"       # velocity-mass CG preconditioner: "jacobi"
                                 # (reference parity), "kron" (per-axis
                                 # Kronecker inverse on the lattice), "auto"
-                                # (kron where available, else jacobi)
+                                # (kron where available, else jacobi),
+                                # "schwarz" (element-block additive Schwarz,
+                                # symmetrized by 1/sqrt(multiplicity)
+                                # weights; more iterations than Jacobi on
+                                # these near-diagonal masses, an option)
     ozaki: bool = False         # f64 mode of the JAX package's TPU: the hot
                                 # contractions (CG mass applies, force pair,
                                 # q-update interpolation) as Ozaki int8
@@ -130,6 +134,11 @@ class Options:
                                 # (r <- r - A dx) at one slice fewer after
                                 # the first outer; off = every outer
                                 # recomputes r = b - A x at full slices
+    cg_warm_start: bool = False  # start stage k's mass solves from stage
+                                 # k-1's accelerations (the target stays
+                                 # referenced to |b|); the reference always
+                                 # starts from zero (laghos_solver.cpp:
+                                 # 278-283), so iteration counts differ
 
 
 # Sedov blast point, a constant of the reference's delta projection
@@ -176,6 +185,109 @@ def _phase(name):
     return wrap
 
 
+def _select(cond, a, b):
+    """torch.where(cond, a, b) over matching nests of tuples, dicts and
+    tensors."""
+    if isinstance(a, dict):
+        return {k: _select(cond, a[k], b[k]) for k in a}
+    if isinstance(a, tuple):
+        return tuple(_select(cond, u, v) for u, v in zip(a, b))
+    return torch.where(cond, a, b)
+
+
+def segment_loop(qupd, step, guard, dtype, S, t, dt, ti, steps, sj,
+                 count_stage1, t_final, max_steps, vis_steps, chk,
+                 before=None, on_reject=None):
+    """Adaptive-dt control flow of laghos.cpp:741-790 (truncation,
+    rejection with 0.85 backoff, 1.02 growth, the reference's exact
+    last_step and rejection quirks) over the operator closures, as
+    `laghos_tpu.hydro.segment_loop` runs it in one lax.while_loop:
+
+      qupd(S)                 -> (sJit, dt_min)
+      step(S, dt_eff, sJit1)  -> (S_new, dt_acc, (h1_iters, l2_iters))
+      guard(S_new, dt_est)    -> dt_est (0 on a non-finite state)
+
+    Runs attempts until the run is done, has crashed or pauses after an
+    accepted step at a vis step (ti % vis_steps == 0) or a step of `chk`.
+    The control scalars stay on the device as 0-d tensors: t and dt in
+    f64 (the host loop's Python floats), ti, steps and the iteration
+    totals in int64, the flags in bool.  The attempt body is a fixed
+    point once done, crashed or paused (every carry entry is selected
+    with torch.where), and the host reads the four flags (done, crashed,
+    pause, rejected) once per attempt, in one copy: that read also says
+    whether the next attempt recomputes its stage-1 q-data, where the JAX
+    body branches with lax.cond.  `before(ti)` is called before each
+    attempt and `on_reject(ti)` after a rejected one, with the host's
+    step number.  `count_stage1` is a Python bool; t, dt, ti and steps may
+    be numbers or 0-d tensors.
+
+    Returns the carry (S, t, dt, ti, steps, sj, count_stage1, done,
+    crashed, h1_iters, l2_iters, pause) of `laghos_tpu.hydro.segment_loop`.
+    """
+    dev = S["e"].device
+    f64, i64 = torch.float64, torch.int64
+    eps = np.finfo(np.float64).eps
+
+    def scalar(v, dtype_):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=dtype_).reshape(())
+        return torch.full((), v, dtype=dtype_, device=dev)
+
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    chk = torch.as_tensor(chk, dtype=i64).to(dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    cs1_host = bool(count_stage1)
+    ti_host = int(ti)
+    carry = (S, scalar(t, f64), scalar(dt, f64), scalar(ti, i64),
+             scalar(steps, i64), sj, scalar(cs1_host, torch.bool), false,
+             false, torch.zeros((), dtype=i64, device=dev),
+             torch.zeros((), dtype=i64, device=dev), false)
+
+    while True:
+        (S, t, dt, ti, steps, sj, cs1, done, crashed, h1a, l2a,
+         pause) = carry
+        if before is not None:
+            before(ti_host)
+        stopped = done | crashed | pause
+        last = (t + dt >= t_final) | (steps == max_steps)
+        dt_eff = torch.where(t + dt >= t_final, t_final - t, dt)
+        if cs1_host:
+            sJ1, dtm1 = qupd(S)
+        else:
+            sJ1, dtm1 = sj, inf
+        S_new, dtacc, (h1it, l2it) = step(S, dt_eff, sJ1)
+        dtacc = torch.minimum(dtacc, dtm1)
+        sj_new, dt_final_q = qupd(S_new)
+        dt_est = guard(S_new, torch.minimum(dtacc, dt_final_q)).to(f64)
+        steps_n = steps + 1
+        reject = dt_est < dt_eff
+        dt_rej = dt_eff * 0.85
+        crashed_n = crashed | (reject & (dt_rej < eps))
+        # the reference's last_step quirk on rejection (laghos.cpp:775)
+        last_rej = last & ~(steps_n < max_steps)
+        grow = dt_est > 1.25 * dt_eff
+        dt_acc = torch.where(grow, dt_eff * 1.02, dt_eff)
+        at_vis = (ti % vis_steps == 0) | (chk == ti).any()
+        new = (_select(reject, S, S_new), torch.where(reject, t, t + dt_eff),
+               torch.where(reject, dt_rej, dt_acc),
+               torch.where(reject, ti, ti + 1), steps_n,
+               _select(reject, sj, sj_new), reject,
+               torch.where(reject, last_rej, last), crashed_n,
+               h1a + torch.where(reject, 0, h1it),
+               l2a + torch.where(reject, 0, l2it), ~reject & at_vis)
+        carry = _select(stopped, carry, new)
+        done_h, crashed_h, pause_h, rej_h = torch.stack(
+            [carry[7], carry[8], carry[11], carry[6]]).tolist()
+        if rej_h:
+            if not crashed_h and on_reject is not None:
+                on_reject(ti_host)
+        else:
+            ti_host += 1
+        cs1_host = rej_h
+        if done_h or crashed_h or pause_h:
+            return carry
+
+
 class Hydro:
     """All static data and the per-step operators of one run."""
 
@@ -187,10 +299,7 @@ class Hydro:
             raise ValueError(f"mesh dimension {mesh.dim}")
         if opt.ode_solver not in (1, 2, 3, 4, 6, 7):
             raise ValueError(f"unknown ode solver {opt.ode_solver}")
-        if opt.precond == "schwarz":
-            raise NotImplementedError(
-                "precond 'schwarz' is not ported yet (ROADMAP A8)")
-        if opt.precond not in ("jacobi", "auto", "kron"):
+        if opt.precond not in ("jacobi", "auto", "kron", "schwarz"):
             raise ValueError(f"unknown precond {opt.precond!r}")
         if opt.ozaki:
             if mesh.dim != 3 or dtype != torch.float64 or not opt.p_assembly:
@@ -214,6 +323,11 @@ class Hydro:
         NE = self.NE = mesh.num_elems
         pb = opt.problem
         self.qupdate_calls = 0
+        # the CGs' flag reads: every iteration on the host loop; inside
+        # run_segment, around the previous stop of the same solve site
+        # (solvers/cg.py), remembered across segments
+        self._in_segment = False
+        self._cg_stops = {}
         self.debug_nans = False
         self.current_step = 0      # the driver's step number, for messages
         # IR velocity solve counts (see ir_stats); the inner sweeps add up
@@ -341,6 +455,17 @@ class Hydro:
         diag = mop.h1_mass_diag(self.h1.gather, self.ndof, massD_cpu,
                                 self._tables_cpu["H1B"], d)
         self.h1_dinv = self._dev(1.0 / diag)
+        # element-block additive Schwarz: the inverted element H1 mass
+        # matrices and the 1/sqrt(dof multiplicity) weights, from the host
+        self._schwarz = None
+        if opt.precond == "schwarz":
+            Me_h1 = aop.h1_mass_element_matrices(
+                massD_cpu, self._tables_cpu["H1B"], d).numpy()
+            counts = np.zeros(self.ndof)
+            np.add.at(counts, self.h1.gather.reshape(-1), 1.0)
+            self._schwarz = (
+                self._dev(torch.tensor(np.linalg.inv(Me_h1), dtype=dtype)),
+                self._dev(torch.tensor(1.0 / np.sqrt(counts), dtype=dtype)))
 
         # RT gravity RHS is constant in time: B_g = Mv . g, g = (0,-1,0)
         self.rt_rhs = None
@@ -627,16 +752,26 @@ class Hydro:
         if self._lat is not None and "kron" in self._lat:
             return lop.kron_precond_apply(r, self._lat["kron"],
                                           self._lat_dims)
-        return r * self.h1_dinv[None, :]
+        if self._schwarz is None:
+            return r * self.h1_dinv[None, :]
+        # element-block additive Schwarz, symmetric through the
+        # 1/sqrt(multiplicity) weights on both sides; assembled by the
+        # path's own gather (no atomics)
+        Ainv, w = self._schwarz
+        rw = torch.where(self.ess_mask_t, torch.zeros_like(r), r) * w
+        ye = torch.einsum("eij,cej->cei", Ainv, self._l_to_e(rw))
+        y = self._assemble(ye) * w
+        return torch.where(self.ess_mask_t, torch.zeros_like(y), y)
 
-    def _cg_velocity_ir(self, rhs):
+    def _cg_velocity_ir(self, rhs, x0=None):
         """Mixed-precision iterative-refinement velocity mass solve (Ozaki
         lattice mode, `laghos_tpu.hydro.Hydro._cg_velocity_ir`): inner CG
         sweeps in f32 on the f32 shadow of the banded operator, outer
         residuals through the f64-accurate Ozaki apply.  Stops on the f64
         CG's criterion (the Jacobi-weighted residual dot against its
         initial value, laghos_solver.cpp:264-284), each component on its
-        own; at most 8 outers, one host sync per outer.
+        own; at most 8 outers, one host sync per outer.  A warm start
+        `x0` takes its first residual through the full-slice apply.
 
         The inner sweeps run in full f32 (device.setup pins no TF32); the
         JAX package's bf16 inner matmuls (cg_ir_inner_mxu) are a TPU knob,
@@ -678,8 +813,12 @@ class Hydro:
             def prec32(rr):
                 return rr * dinv32
 
-        x = torch.zeros_like(rhs)
-        r = rhs
+        if x0 is None:
+            x = torch.zeros_like(rhs)
+            r = rhs
+        else:
+            x = x0
+            r = rhs - apply_res(x0, s_res)
         target = rdot(rhs) * (tol * tol)
         inner_max = min(self.opt.cg_max_iter, 100)
         active = rdot(r) > target
@@ -691,7 +830,7 @@ class Hydro:
             if n_active == 0:
                 break
             res = cg(apply32, r.float(), self.opt.cg_ir_inner_tol,
-                     inner_max, precond=prec32)
+                     inner_max, precond=prec32, reads=self._reads("ir"))
             dx = torch.where(active[:, None], res.x.double(),
                              torch.zeros_like(x))
             x = x + dx
@@ -718,20 +857,22 @@ class Hydro:
         return dict(self._ir, inner_sweeps=inner)
 
     @_phase("velocity solve")
-    def _cg_velocity(self, rhs):
+    def _cg_velocity(self, rhs, x0=None):
         if not self.p_assembly:
             return self._cg_velocity_fa(rhs)
         if self._lat32 is not None and self.opt.cg_ir:
-            return self._cg_velocity_ir(rhs)
+            return self._cg_velocity_ir(rhs, x0=x0)
         res = cg(self._h1_apply_bc, rhs, self.opt.cg_tol,
-                 self.opt.cg_max_iter, precond=self._precond_velocity)
+                 self.opt.cg_max_iter, precond=self._precond_velocity,
+                 x0=x0, reads=self._reads("h1"))
         return res.x, torch.sum(res.iters)
 
     def _cg_velocity_fa(self, rhs):
         """FA velocity solve: ONE coupled Jacobi-PCG over all d*ndof
         unknowns (laghos_solver.cpp:400-439), through the assembled sparse
         mass, so one residual and one iteration count cover every
-        component."""
+        component.  It always starts from zero: the JAX package's FA solve
+        takes no warm start either."""
         d = self.dim
 
         def apply_flat(u):
@@ -740,12 +881,20 @@ class Hydro:
                                y).reshape(1, -1)
 
         res = cg(apply_flat, rhs.reshape(1, -1), self.opt.cg_tol,
-                 self.opt.cg_max_iter, precond=lambda r: r * self._fa_dinv)
+                 self.opt.cg_max_iter, precond=lambda r: r * self._fa_dinv,
+                 reads=self._reads("h1"))
         return res.x.reshape(d, -1), torch.sum(res.iters)
 
-    def _solve_velocity(self, sJit):
+    def _reads(self, site):
+        """The flag-read state of the CG at `site` (None: every
+        iteration)."""
+        if not self._in_segment:
+            return None
+        return self._cg_stops.setdefault(site, [None])
+
+    def _solve_velocity(self, sJit, x0=None):
         return self._cg_velocity(self._prep_velocity_rhs(
-            self._force_rhs_raw(sJit)))
+            self._force_rhs_raw(sJit)), x0=x0)
 
     def _taylor_source(self, S):
         """Taylor-Green forcing on the current mesh
@@ -784,12 +933,13 @@ class Hydro:
         return fop.force_mult_transpose(v_e, sJit, self.tables, dim=self.dim)
 
     @_phase("energy solve")
-    def _cg_energy(self, e_rhs):
+    def _cg_energy(self, e_rhs, x0=None):
         if not self.p_assembly:
-            # FA: the inverted element mass matrices; the iteration count
-            # the JAX package reports is NE
+            # FA: the inverted element mass matrices (no use for a warm
+            # start); the iteration count the JAX package reports is NE
             de = torch.einsum("eij,ej->ei", self.Me_inv, e_rhs)
-            return de, torch.tensor(self.NE, device=self.device)
+            return de, torch.full((), self.NE, dtype=torch.int64,
+                                  device=self.device)
 
         def apply_A(u):
             ue = u.reshape(self.NE, self.ld)
@@ -799,40 +949,50 @@ class Hydro:
             return ue.reshape(1, -1)
 
         res = cg(apply_A, e_rhs.reshape(1, -1), self.opt.cg_tol,
-                 self.opt.cg_max_iter)
+                 self.opt.cg_max_iter,
+                 x0=None if x0 is None else x0.reshape(1, -1),
+                 reads=self._reads("l2"))
         iters = torch.clamp(res.iters[0], min=1)
         return res.x.reshape(self.NE, self.ld), iters
 
-    def _solve_energy(self, S, sJit, v):
+    def _solve_energy(self, S, sJit, v, x0=None):
         e_rhs = self._force_transpose(sJit, v)
         if self.source == 1:
             e_rhs = e_rhs + self._taylor_source(S)
-        return self._cg_energy(e_rhs)
+        return self._cg_energy(e_rhs, x0=x0)
 
     def _inf(self):
-        return torch.tensor(float("inf"), dtype=self.dtype,
-                            device=self.device)
+        # a fill, not a host-to-device copy, so it costs no host sync
+        return torch.full((), float("inf"), dtype=self.dtype,
+                          device=self.device)
 
-    def _mult(self, S, sJit=None):
+    def _mult(self, S, sJit=None, warm=None):
         """dS/dt (laghos_solver.cpp:308-327). Returns (dS, dtmin, stats).
 
         A provided `sJit` is reused instead of recomputed: the reference's
         q-data memoization (laghos_solver.cpp:807-814), where stage 1 of
         every accepted step reuses the q-data of the previous dt estimate.
+        `warm` (Options.cg_warm_start) is the step's dict carrying the
+        previous stage's accelerations as the mass solves' start.
         """
         if sJit is None:
             sJit, dtmin = self._qupdate(S)
         else:
             dtmin = self._inf()
-        dv, h1it = self._solve_velocity(sJit)
-        de, l2it = self._solve_energy(S, sJit, S["v"])
+        x0v, x0e = (None, None) if warm is None else (warm.get("dv"),
+                                                      warm.get("de"))
+        dv, h1it = self._solve_velocity(sJit, x0=x0v)
+        de, l2it = self._solve_energy(S, sJit, S["v"], x0=x0e)
+        if warm is not None:
+            warm["dv"], warm["de"] = dv, de
         return {"x": S["v"], "v": dv, "e": de}, dtmin, (h1it, l2it)
 
     def _mult_timed(self, S, tim, sJit=None):
         """Phase-timed RHS evaluation with device fences, for FOM runs
         (timing semantics of laghos_solver.cpp:349-489).  A provided sJit
         reuses the previous estimate's q-data without charging sw_qdata,
-        like the reference's memoized stage 1."""
+        like the reference's memoized stage 1.  Cold solves only: the JAX
+        package's timed stages take no warm start either."""
         if sJit is None:
             with tim.phase("qdata"):
                 sJit, dtmin = block(self._qupdate(S))
@@ -883,13 +1043,15 @@ class Hydro:
         """One RK step; returns (S_new, dt_min_of_counted_stages, stats).
 
         `mult` / `rk2avg_stage` override the stage evaluation (the timed
-        variants); `sJit1` is the memoized stage-1 q-data."""
+        variants, which solve cold); `sJit1` is the memoized stage-1
+        q-data."""
+        warm = {} if self.opt.cg_warm_start else None
         if mult is None:
             first = [sJit1]
 
             def mult(Sc):
                 sj, first[0] = first[0], None
-                return self._mult(Sc, sj)
+                return self._mult(Sc, sj, warm=warm)
         dtacc = self._inf()
         h1tot = 0
         l2tot = 0
@@ -904,7 +1066,7 @@ class Hydro:
         s = self.opt.ode_solver
         if s == 7:
             S_new = self._rk2avg(S, dt, count_stage1, acc, rk2avg_stage,
-                                 sJit1=sJit1)
+                                 sJit1=sJit1, warm=warm)
         elif s == 1:
             k1, dtm, st = mult(S)
             acc(dtm, st, count_stage1)
@@ -946,7 +1108,8 @@ class Hydro:
             S_new = self._rk6(S, dt, count_stage1, acc, mult)
         return S_new, dtacc, (h1tot, l2tot)
 
-    def _rk2avg(self, S, dt, count_stage1, acc, stage_fn=None, sJit1=None):
+    def _rk2avg(self, S, dt, count_stage1, acc, stage_fn=None, sJit1=None,
+                warm=None):
         """Energy-conserving two-stage average scheme
         (laghos_solver.cpp:1447-1487)."""
         v0 = S["v"]
@@ -957,9 +1120,13 @@ class Hydro:
                 dtm = self._inf()
             else:
                 sJit, dtm = self._qupdate(Scur)
-            dv, h1it = self._solve_velocity(sJit)
+            x0v, x0e = (None, None) if warm is None else (warm.get("dv"),
+                                                          warm.get("de"))
+            dv, h1it = self._solve_velocity(sJit, x0=x0v)
             V = v0 + 0.5 * dt * dv
-            de, l2it = self._solve_energy(Scur, sJit, V)
+            de, l2it = self._solve_energy(Scur, sJit, V, x0=x0e)
+            if warm is not None:
+                warm["dv"], warm["de"] = dv, de
             return {"x": V, "v": dv, "e": de}, dtm, (h1it, l2it)
 
         def stage(Scur, counted):
@@ -1008,6 +1175,30 @@ class Hydro:
         sj_new, dt_final = self._qupdate(S_new)
         dt_est = self._guard_finite(S_new, torch.minimum(dtacc, dt_final))
         return S_new, dt_est, stats, sj_new
+
+    def run_segment(self, S, t, dt, ti, steps, sj, count_stage1, t_final,
+                    max_steps, vis_steps, chk, on_reject=None):
+        """Accepted steps with the control flow on the device until the
+        next vis or check pause or the end of the run (`segment_loop` over
+        this run's operators; `laghos_tpu.hydro.Hydro.run_segment`).  The
+        CGs read their convergence flag around the previous solve's stop
+        (solvers/cg.py `reads`).  `chk` lists the extra pause steps ([-1]
+        for none)."""
+
+        def before(ti_host):
+            self.current_step = ti_host
+
+        self._in_segment = True
+        try:
+            return segment_loop(
+                self._qupdate,
+                lambda Sc, dt_eff, sJ1: self._step(Sc, dt_eff, True,
+                                                   sJit1=sJ1),
+                self._guard_finite, self.dtype, S, t, dt, ti, steps, sj,
+                count_stage1, t_final, max_steps, vis_steps, chk,
+                before=before, on_reject=on_reject)
+        finally:
+            self._in_segment = False
 
     def advance_timed(self, S, dt, tim, count_stage1=False, sJit1=None):
         """Like `advance` but with per-phase stopwatches (FOM mode)."""

@@ -13,8 +13,8 @@ import torch
 
 
 def state_from_numpy(S: dict, device="cpu", dtype=torch.float64) -> dict:
-    """{"x": (dim, ndof), "v": (dim, ndof), "e": (NE, ld)} arrays ->
-    contiguous tensors on `device`."""
+    """{"x": (dim, ndof), "v": (dim, ndof), "e": (NE, ld)} arrays (any
+    leading axes) -> contiguous tensors on `device`."""
     return {k: torch.tensor(np.asarray(S[k]), dtype=dtype, device=device)
             for k in ("x", "v", "e")}
 
@@ -85,3 +85,46 @@ def ozaki_arrays(h) -> dict:
     return {"oz": {k: tuple(_split_arrays(s) for s in v)
                    for k, v in h.oz.items()},
             "lat_oz": lat}
+
+
+def simplex_state_from_numpy(S: dict, *, device,
+                             dtype=torch.float64) -> dict:
+    """A `SimplexHydro` state {"x": (dim, ndof), "v": (dim, ndof),
+    "e": (NE, ld)} (a `laghos_tpu.simplex_hydro.SimplexHydro` state) ->
+    tensors on `device`."""
+    out = state_from_numpy(S, device=device, dtype=dtype)
+    if (out["x"].dim() != 2 or out["x"].shape[0] not in (2, 3)
+            or out["v"].shape != out["x"].shape or out["e"].dim() != 2):
+        raise ValueError("not a simplex state: x, v (dim, ndof), e (NE, ld)")
+    return out
+
+
+def batch_state_from_numpy(Sb: dict, *, device, dtype=torch.float64) -> dict:
+    """A member-batched state (every array with a leading B axis, as
+    `batch.blast_states` and `laghos_tpu.batch.blast_states` make) ->
+    tensors on `device`."""
+    out = state_from_numpy(Sb, device=device, dtype=dtype)
+    if len({out[k].shape[0] for k in out}) != 1 or out["x"].dim() != 3:
+        raise ValueError("not a batched state: x, v (B, dim, ndof), "
+                         "e (B, NE, ld)")
+    return out
+
+
+def sweep_to_numpy(out: dict) -> dict:
+    """A `batch.sweep` result (S and the per-member t, dt, steps, crashed,
+    h1_iters, l2_iters, each with a leading B axis) as NumPy, the layout
+    of `laghos_tpu.batch.sweep`'s."""
+    res = {k: _np(v) for k, v in out.items() if k != "S"}
+    res["S"] = state_to_numpy(out["S"])
+    return res
+
+
+def simplex_arrays(h) -> dict:
+    """The static arrays of a `SimplexHydro` as NumPy, under the attribute
+    names of `laghos_tpu.simplex_hydro.SimplexHydro`: B, G, Bl, W, gather,
+    massD, h1_dinv, Me_inv, rw, Jac0inv, h0 and S0."""
+    return {"B": _np(h.B), "G": _np(h.G), "Bl": _np(h.Bl), "W": _np(h.W),
+            "gather": np.asarray(h.gather_np), "massD": _np(h.massD),
+            "h1_dinv": _np(h.h1_dinv), "Me_inv": _np(h.Me_inv),
+            "rw": _np(h.rw), "Jac0inv": _np(h.Jac0inv), "h0": float(h.h0),
+            "S0": state_to_numpy(h.S0)}

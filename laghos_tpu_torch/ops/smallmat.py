@@ -3,7 +3,8 @@
 Equivalents of the mfem::kernels device helpers used by the reference's
 quadrature-point physics (laghos_solver.cpp:1078-1158), written as
 elementwise torch ops in closed form.  Only what the port calls: the 1D
-and 2D closed forms, the 3D determinant and the scalarized 3D eigen-solve
+and 2D closed forms, the 3D determinant and adjugate, the cyclic-Jacobi 3D
+eigen-solves of the simplex q-update and the scalarized 3D eigen-solve
 `eig3s_hybrid`.
 
 Every function keeps the operation order of `laghos_tpu.ops.smallmat`, and
@@ -35,17 +36,25 @@ def det(J: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def inv(J: torch.Tensor, d: int, detJ=None) -> torch.Tensor:
-    """Inverse of 1x1 and 2x2 batches (2x2 by the adjugate)."""
-    if d not in (1, 2):
-        raise NotImplementedError("inv is the 1D and 2D closed form")
+    """Inverse of dxd batches by the adjugate."""
     if detJ is None:
         detJ = det(J, d)
     idet = 1.0 / detJ
     if d == 1:
         return idet[..., None, None]
-    r0 = torch.stack([J[..., 1, 1], -J[..., 0, 1]], dim=-1)
-    r1 = torch.stack([-J[..., 1, 0], J[..., 0, 0]], dim=-1)
-    return torch.stack([r0, r1], dim=-2) * idet[..., None, None]
+    if d == 2:
+        r0 = torch.stack([J[..., 1, 1], -J[..., 0, 1]], dim=-1)
+        r1 = torch.stack([-J[..., 1, 0], J[..., 0, 0]], dim=-1)
+        return torch.stack([r0, r1], dim=-2) * idet[..., None, None]
+    a, b, c = J[..., 0, 0], J[..., 0, 1], J[..., 0, 2]
+    p, q, r = J[..., 1, 0], J[..., 1, 1], J[..., 1, 2]
+    u, v, w = J[..., 2, 0], J[..., 2, 1], J[..., 2, 2]
+    A = torch.stack([
+        torch.stack([q * w - r * v, c * v - b * w, b * r - c * q], -1),
+        torch.stack([r * u - p * w, a * w - c * u, c * p - a * r], -1),
+        torch.stack([p * v - q * u, b * u - a * v, a * q - b * p], -1),
+    ], dim=-2)
+    return A * idet[..., None, None]
 
 
 def _eig2_smallest(A: torch.Tensor):
@@ -57,19 +66,26 @@ def _eig2_smallest(A: torch.Tensor):
 
 
 def sym_eig_smallest(A: torch.Tensor, d: int):
-    """(lambda_min, eigenvector) of symmetric 1x1 and 2x2 batches."""
+    """(lambda_min, eigenvector) of symmetric dxd batches (the 3D case is
+    the simplex q-update's; the hex path's runs in csrc/qphys.cu)."""
     if d == 1:
         return A[..., 0, 0], torch.ones_like(A[..., 0, :])
-    return _eig2_smallest(A)
+    if d == 2:
+        return _eig2_smallest(A)
+    return _eig3_smallest(A)
 
 
 def min_singular_value(J: torch.Tensor, d: int) -> torch.Tensor:
-    """Smallest singular value of 1x1 and 2x2 batches
+    """Smallest singular value of dxd batches
     (mfem kernels::CalcSingularvalue)."""
     if d == 1:
         return torch.abs(J[..., 0, 0])
-    return min_sv2_scalar(J[..., 0, 0], J[..., 0, 1], J[..., 1, 0],
-                          J[..., 1, 1])
+    if d == 2:
+        return min_sv2_scalar(J[..., 0, 0], J[..., 0, 1], J[..., 1, 0],
+                              J[..., 1, 1])
+    JtJ = torch.einsum("...ka,...kb->...ab", J, J)
+    lam_min = _eig3_values_min(JtJ)
+    return torch.sqrt(torch.clamp(lam_min, min=0.0))
 
 
 def _sign(x):
@@ -278,3 +294,58 @@ def eig3s_hybrid(a00, a11, a22, a01, a02, a12, *, sweeps=4,
     mu2 = rayleigh(ex, ey, ez)
     mu = torch.where(good & torch.isfinite(mu2), mu2, mu)
     return mu, (ex, ey, ez)
+
+
+def _eig3_smallest(A: torch.Tensor, sweeps: int = 4):
+    """Smallest eigenvalue and eigenvector of symmetric 3x3 batches:
+    fixed-count cyclic Jacobi on the 6 unique entries with the rotations
+    accumulated, in the input precision (`laghos_tpu.ops.smallmat.
+    _eig3_smallest`).  For exactly repeated smallest eigenvalues the
+    vector is the coordinate direction of the first such diagonal entry
+    (mfem kernels CalcEigenvalues<3>)."""
+    a00, a11, a22 = A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]
+    a01, a02, a12 = A[..., 0, 1], A[..., 0, 2], A[..., 1, 2]
+    one = torch.ones_like(a00)
+    zero = torch.zeros_like(a00)
+    V = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
+
+    def vupd(c, s, p, q):
+        for i in range(3):
+            vip, viq = V[i][p], V[i][q]
+            V[i][p] = c * vip - s * viq
+            V[i][q] = s * vip + c * viq
+
+    for _ in range(sweeps):
+        a00, a11, a01, a02, a12, c, s = jacobi_rot_step(
+            a00, a11, a01, a02, a12)
+        vupd(c, s, 0, 1)
+        a00, a22, a02, a01, a12, c, s = jacobi_rot_step(
+            a00, a22, a02, a01, a12)
+        vupd(c, s, 0, 2)
+        a11, a22, a12, a01, a02, c, s = jacobi_rot_step(
+            a11, a22, a12, a01, a02)
+        vupd(c, s, 1, 2)
+
+    dia = torch.stack([a00, a11, a22], dim=-1)
+    k = torch.argmin(dia, dim=-1)
+    lam_min = torch.amin(dia, dim=-1)
+    cols = torch.stack(
+        [torch.stack([V[0][j], V[1][j], V[2][j]], dim=-1) for j in range(3)],
+        dim=-2)                                 # (..., column j, i)
+    idx = k[..., None, None].expand(k.shape + (1, 3))
+    return lam_min, torch.gather(cols, -2, idx)[..., 0, :]
+
+
+def _eig3_values_min(A: torch.Tensor, sweeps: int = 4):
+    """Smallest eigenvalue only of symmetric 3x3 batches (no eigenvector
+    accumulation)."""
+    a00, a11, a22 = A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]
+    a01, a02, a12 = A[..., 0, 1], A[..., 0, 2], A[..., 1, 2]
+    for _ in range(sweeps):
+        a00, a11, a01, a02, a12 = jacobi_rot_step(a00, a11, a01,
+                                                  a02, a12)[:5]
+        a00, a22, a02, a01, a12 = jacobi_rot_step(a00, a22, a02,
+                                                  a01, a12)[:5]
+        a11, a22, a12, a01, a02 = jacobi_rot_step(a11, a22, a12,
+                                                  a01, a02)[:5]
+    return torch.minimum(torch.minimum(a00, a11), a22)

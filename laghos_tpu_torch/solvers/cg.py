@@ -6,11 +6,24 @@ preconditioned residual dot (r, Br) against its initial value, absolute
 tolerance 0, zero initial guess.  The stopping rule, the iteration counting
 and the breakdown guard are those of `laghos_tpu.solvers.cg`, so CG
 iteration counts (part of the reference's FOM, laghos_solver.cpp:722) match.
+An optional `x0` warm-starts the solve (mfem's iterative_mode) with the
+stopping target still referenced to b.
 
 Independent right-hand sides (the velocity components) run batched as the
 rows of one (C, n) system with per-column convergence masks; no column's
 iterate depends on another's.  The loop runs on the host: the `any(active)`
-test reads one flag from the device per iteration.
+test reads one flag from the device, by default every iteration.  A column
+that has converged takes exact no-op iterations (a zero step, its
+direction and dots held), and its count is recorded at the iteration where
+it converged, so reading the flag less often returns the same bits and
+counts with fewer host syncs.  With `reads` (a one-element list holding
+the stop of the previous solve of the same system, or None) the flag is
+read at the first iteration, every _READ_PERIOD iterations, and every
+iteration from two before that stop on; the CG writes back one past the
+last iteration at which it read the flag still set, the earliest its own
+stop could have been.  A solve whose count repeats the previous one's
+then reads the flag three times near the end and runs no iteration past
+its convergence; a count that jumps costs one solve of late reads.
 """
 
 from __future__ import annotations
@@ -18,6 +31,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+
+# the longest run of iterations without a flag read under `reads`
+_READ_PERIOD = 16
 
 
 class CGResult(NamedTuple):
@@ -36,24 +53,41 @@ def cg(
     rel_tol: float,
     max_iter: int,
     precond: Optional[Callable] = None,   # (C, n) -> (C, n)
+    x0: Optional[torch.Tensor] = None,    # (C, n) warm start
+    reads: Optional[list] = None,         # [previous stop] or [None]
 ) -> CGResult:
     M = precond if precond is not None else (lambda r: r)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
 
-    r = b
-    x = torch.zeros_like(b)
-    z = M(r)
-    d = z
-    nom = _dot(d, r)
-    r0 = nom * (rel_tol * rel_tol)
+    if x0 is None:
+        r = b
+        x = torch.zeros_like(b)
+        z = M(r)
+        d = z
+        nom = _dot(d, r)
+        r0 = nom * (rel_tol * rel_tol)
+    else:
+        x = x0
+        r = b - apply_A(x0)
+        z = M(r)
+        d = z
+        nom = _dot(d, r)
+        # the target stays referenced to b, as a cold solve's would be, so
+        # a warm start saves iterations instead of solving tighter
+        r0 = _dot(M(b), b) * (rel_tol * rel_tol)
     active = nom > r0
     Ad = apply_A(d)
     den = _dot(d, Ad)
     iters = torch.where(active, max_iter, 0)
 
-    it = 1
-    while it <= max_iter and bool(active.any()):
+    near = max_iter + 1 if reads is None or reads[0] is None else reads[0] - 2
+    it = seen = 1
+    while it <= max_iter:
+        if reads is None or (it - 1) % _READ_PERIOD == 0 or it >= near:
+            if not bool(active.any()):
+                break
+            seen = it
         # Breakdown guard: an SPD operator gives den > 0; den <= 0 can only
         # be roundoff noise, so the column freezes at its current iterate
         # (mfem CGSolver prints "not positive definite" here).
@@ -78,4 +112,6 @@ def cg(
         den = torch.where(active, _dot(d, Ad), den)
         nom = torch.where(active, betanom, nom)
         it += 1
+    if reads is not None:
+        reads[0] = seen + 1
     return CGResult(x, iters, ~active)

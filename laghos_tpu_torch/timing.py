@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
+import warnings
 
 import torch
 
@@ -173,3 +174,23 @@ def device_ms(fn, n=20, cold=False):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Count the host syncs the enclosed code makes on the card: under
+    torch.cuda.set_sync_debug_mode("warn") every synchronizing CUDA call
+    torch makes (a read of a device value such as bool() or .tolist(), a
+    blocking copy, a synchronize) raises a warning, and the yielded dict's
+    "syncs" holds their number when the block ends.  Counting costs one
+    Python warning a sync; time runs without it."""
+    out = {"syncs": 0}
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    out["syncs"] = sum("synchroniz" in str(w.message) for w in seen)

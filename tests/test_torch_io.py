@@ -93,7 +93,8 @@ def test_mfem_mesh_file_read_identically(name, rs, tmp_path):
 
 def test_mfem_nodes_variant_and_simplex(tmp_path):
     """The `nodes` vertex variant of the reference's data files reads as
-    in the JAX package; a triangle mesh raises naming ROADMAP A12."""
+    in the JAX package; the quad reader refuses a triangle mesh, which
+    `data.get_mesh` then reads as a `TriMesh`."""
     txt = """MFEM mesh v1.0
 
 dimension
@@ -126,8 +127,10 @@ Ordering: 0
                        jmesh.load_mfem_mesh(str(path)))
     tri = tmp_path / "tri.mesh"
     tri.write_text(txt.replace("1 3 0 1 2 3", "1 2 0 1 2"))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="simplex"):
         tmesh.load_mfem_mesh(str(tri))
+    m = tdata.get_mesh(str(tri))
+    assert m.num_elems == 1 and m.elems.tolist() == [[0, 1, 2]]
 
 
 NETGEN = """areamesh2

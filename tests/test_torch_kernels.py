@@ -443,3 +443,51 @@ def test_csr_apply_on_card_matches_cpu_and_repeats(dim, rs):
         assert torch.equal(tasm.csr_apply(A_gpu, u.to(dev)), y)
     A2 = tasm.to_csr(Mel, sp.gather, sp.ndof, dev)
     assert torch.equal(tasm.csr_apply(A2, u.to(dev)), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(structured_el=False,
+                                         lattice_ops=False)])
+def test_schwarz_apply_on_card_matches_cpu_and_repeats(kw):
+    """The element-block Schwarz preconditioner on the lattice path (the
+    parity transforms) and the gather path (the incidence gather): on the
+    card against the CPU at round-off, and bit for bit equal to itself
+    over repeated applies."""
+    dev = _card()
+    m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
+    opt = Options(problem=1, precond="schwarz", **kw)
+    hc, hg = Hydro(m, opt, device="cpu"), Hydro(m, opt, device=dev)
+    r = torch.tensor(np.random.default_rng(2).normal(size=(3, hc.ndof)))
+    y_cpu = hc._precond_velocity(r)
+    y = hg._precond_velocity(r.to(dev))
+    torch.cuda.synchronize()
+    assert float((y.cpu() - y_cpu).abs().max()) <= \
+        1e-13 * float(y_cpu.abs().max())
+    for _ in range(20):
+        assert torch.equal(hg._precond_velocity(r.to(dev)), y)
+
+
+@pytest.mark.cuda
+def test_simplex_assembly_on_card_repeats():
+    """The simplex path's assembly (the incidence gather of ops/mass.py
+    that replaces the JAX package's scatter-add): the tet mass apply on
+    the card against the CPU at round-off and bit for bit equal to itself
+    over 50 applies."""
+    from laghos_tpu_torch.fem import simplex_mesh as tsm
+    from laghos_tpu_torch.simplex_hydro import SimplexHydro
+
+    dev = _card()
+    m = tsm.uniform_refine_tet(tsm.make_tet_mesh((2, 2, 2)))
+    opt = Options(problem=1, ode_solver=7)
+    hc, hg = SimplexHydro(m, opt, device="cpu"), SimplexHydro(m, opt,
+                                                              device=dev)
+    u = torch.tensor(np.random.default_rng(3).normal(size=(3, hc.ndof)))
+    y_cpu = hc._mass_apply(u)
+    y = hg._mass_apply(u.to(dev))
+    torch.cuda.synchronize()
+    assert float((y.cpu() - y_cpu).abs().max()) <= \
+        1e-13 * float(y_cpu.abs().max())
+    for _ in range(50):
+        assert torch.equal(hg._mass_apply(u.to(dev)), y)
+    S, _, steps = hg.run(0.6, max_steps=2)
+    assert steps == 3 and bool(torch.isfinite(S["e"]).all())
