@@ -70,7 +70,17 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    (drift <= 1e-11, bitwise equal), its assembly's repeatability beside
    an index_add_ version (printed), then once through the CLI's simplex
    route.  The simplex path runs no hand-written kernel, as the JAX
-   package's runs no Pallas kernel.
+   package's runs no Pallas kernel;
+15. the AMR variant (`laghos_tpu_torch/amr/`): BASELINE AMR row 1's
+   60-attempt prefix (2D, rs4, Q2-Q1) twice, bitwise equal and at the JAX
+   package's pinned 51 steps / NE 70 / |e| 390.4794540789; row 3's first
+   150 accepted steps (3D, rs3) against the JAX package's trace in
+   runs/ (every refine/derefine decision equal, |e| to AMR_E_TOL); row 4
+   resumed from the JAX package's checkpoint in runs/ (NE 2,745, 21,041
+   true nodes a component) for 21 attempts twice, bitwise equal, against
+   the JAX package's continuation, with the host syncs per accepted step;
+   one CLI run with -amr.  No hand-written kernel may launch there: the
+   AMR q-update is plain torch, as it is plain JAX.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -1419,6 +1429,231 @@ def phase_simplex(dev):
         raise AssertionError("the CLI's simplex route")
 
 
+# ----------------------------------------------------------- phase 15 --
+# BASELINE AMR rows (amr/README.md:98-103): row 1's 60-attempt prefix, row
+# 3's first AMR_ROW3_STEPS accepted steps against the JAX package's trace
+# in runs/, row 4 resumed from the JAX package's checkpoint in runs/
+AMR_ROW1 = dict(problem=1, blast_energy=0.25, order_v=2, order_e=1,
+                cg_tol=1e-8)
+AMR_ROW1_PINNED = (51, 70, 390.4794540789)   # tests/test_amr.py:157-179
+AMR_ROW3_STEPS = 150
+AMR_ROW4_ATTEMPTS = 21
+# |e| against the JAX package's runs, relative.  The graded meshes'
+# velocity masses are ill-conditioned (condition number 33,105 on row 3's
+# initial forest), so the unpreconditioned CG stops at -cgm 300 short of
+# -cgt 1e-8, and its unconverged iterate carries the two packages'
+# different summation orders up: fed identical inputs, their velocities
+# differ by 7.1e-7 after the 300 iterations (a CPU run of both), and row
+# 3's |e| by 1.3e-9 at step 1.  The refine/derefine decisions are held
+# exactly; |e| to AMR_E_TOL, with the first step past 1e-12 and past 1e-9
+# logged.
+AMR_E_TOL = 1e-6
+# the JAX package's continuation of runs/amr_ckpt_row4.pkl for
+# AMR_ROW4_ATTEMPTS attempts (step 1801 on), (ti, NE, |e|) of each accepted
+# step, computed on a CPU by the JAX package itself:
+#   cp runs/amr_ckpt_row4.pkl CK; AMR_CKPT_PATH=CK AMR_TRACE_PATH=T.json \
+#   AMR_CKPT_EVERY=1000 python scripts/amr_golden.py 4 1856
+AMR_ROW4_JAX = (
+    (1801, 2759, 3225.055791208549),
+    (1802, 2773, 3223.366843951816),
+    (1803, 2787, 3221.6820221644593),
+    (1804, 2766, 3219.8588470836803),
+    (1805, 2759, 3218.113020594708),
+    (1806, 2745, 3216.33579812192),
+    (1807, 2745, 3214.634576350452),
+    (1808, 2738, 3212.8974992534922),
+    (1809, 2731, 3211.1310151811263),
+    (1810, 2738, 3209.409045706923),
+    (1811, 2731, 3207.6560534257437),
+    (1812, 2738, 3205.9429811611303),
+    (1813, 2759, 3204.2343345098775),
+    (1814, 2766, 3202.496060491795),
+    (1815, 2752, 3200.665004714942),
+    (1816, 2752, 3199.1357642205817),
+    (1817, 2752, 3197.6100857941387),
+    (1818, 2752, 3196.0575505823763),
+    (1819, 2759, 3194.477754281646),
+    (1820, 2780, 3192.870291107619),
+)
+AMR_CLI = ["-d", "cuda", "-p", "1", "-m", "square01_quad", "-rs", "3",
+           "-tf", "0.8", "-amr", "-ms", "20"]
+
+
+def _amr_graded(dim, rs):
+    from laghos_tpu_torch.amr.forest import Forest
+
+    f = Forest(dim, (2,) * dim, (1.0,) * dim, max_depth=rs)
+    for _ in range(rs):
+        corner = [k for k in f.leaf_list() if not any(k[1])]
+        f.refine(corner, balance=False)
+    return f
+
+
+def _amr_run(h, **kw):
+    """run_amr on `h` with a fresh trace: (summary, trace, wall seconds)."""
+    from laghos_tpu_torch.amr.driver import run_amr
+
+    trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_amr(h, vis_steps=10**9, trace=trace, **kw)
+    torch.cuda.synchronize()
+    return res, trace, time.perf_counter() - t0
+
+
+def _same_state(ha, hb):
+    return all(torch.equal(ha.state[k], hb.state[k]) for k in "xve")
+
+
+def _amr_line(tag, h, res, wall, peak):
+    sec = res["seconds"]
+    log(f"[15 amr] {tag}: steps {res['steps']}, NE {res['NE']}, t "
+        f"{res['t']!r}, |e| {res['e_norm']!r}; wall {wall:.3f} s (stepping "
+        f"{sec['stepping']:.3f} s, host rebuild {sec['rebuild']:.3f} s over "
+        f"{res['mesh_changes']} mesh changes); CG-H1 {int(h.h1_iters)} "
+        f"coupled iterations in {h.h1_solves} solves "
+        f"({int(h.h1_iters) / max(h.h1_solves, 1):.1f} per solve); peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+
+
+def phase_amr(dev):
+    """The AMR variant: (a) BASELINE AMR row 1's 60-attempt prefix twice,
+    bitwise equal and at the JAX package's pinned values; (b) row 3's first
+    AMR_ROW3_STEPS accepted steps against runs/amr_trace_row3.json; (c) the
+    row-4 checkpoint (NE 2,745, 3D) resumed for AMR_ROW4_ATTEMPTS attempts
+    twice, bitwise equal and against the JAX package's continuation, with
+    host syncs per accepted step; (d) one short CLI run.  The AMR q-update
+    is plain torch: a hand-written kernel launch here is a routing fault."""
+    from laghos_tpu_torch.amr import driver as adrv
+    from laghos_tpu_torch.amr.solver import AMRHydro
+    from laghos_tpu_torch.hydro import Options
+    from laghos_tpu_torch.timing import count_syncs
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # (a) row 1 prefix, twice
+    runs = []
+    for _ in range(2):
+        h = AMRHydro(_amr_graded(2, 4), Options(**AMR_ROW1), h0=0.25,
+                     device=dev)
+        runs.append((h,) + _amr_run(h, t_final=0.8, max_steps=60))
+    (ha, ra, ta, wall), (hb, rb, tb, _) = runs
+    same = _same_state(ha, hb) and ta == tb
+    steps, ne, en = AMR_ROW1_PINNED
+    rel = abs(ra["e_norm"] - en) / en
+    _amr_line("(a) row 1 prefix, 60 attempts", ha, ra, wall,
+              torch.cuda.max_memory_allocated())
+    log(f"[15 amr] (a) two runs bitwise equal (states, traces): {same}; "
+        f"pinned {steps} / {ne} / {en}: |e| rel {rel:.3e} (limit 1e-8)")
+    if not (same and ra["steps"] == steps and ra["NE"] == ne
+            and rel <= 1e-8):
+        raise AssertionError("AMR row 1 prefix")
+
+    # (b) row 3, first AMR_ROW3_STEPS accepted steps
+    with open("runs/amr_trace_row3.json") as fp:
+        jtr = json.load(fp)
+    attempts = sum(1 for r in jtr if r["ti"] <= AMR_ROW3_STEPS)
+    h = AMRHydro(_amr_graded(3, 3), Options(**AMR_ROW1), h0=0.25,
+                 device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    res, tr, wall = _amr_run(h, t_final=0.6, max_steps=attempts - 1)
+    _amr_line(f"(b) row 3, {attempts} attempts", h, res, wall,
+              torch.cuda.max_memory_allocated())
+    mine = {r["ti"]: r for r in tr if "t" in r}
+    ref = {r["ti"]: r for r in jtr if "t" in r and r["ti"] <= res["steps"]}
+    first = {1e-12: None, 1e-9: None}
+    worst = 0.0
+    flips = []
+    for ti in sorted(ref):
+        a, b = mine.get(ti), ref[ti]
+        if a is None or any(a[k] != b[k] for k in ("NE", "n_ref",
+                                                   "n_deref")):
+            flips.append(ti)
+            continue
+        d = abs(a["e_norm"] - b["e_norm"]) / b["e_norm"]
+        worst = max(worst, d)
+        for lim in first:
+            if first[lim] is None and d > lim:
+                first[lim] = ti
+    log(f"[15 amr] (b) against runs/amr_trace_row3.json: {len(ref)} "
+        f"accepted steps, decision differences at {flips[:5] or 'none'}, "
+        f"max |e| rel {worst:.3e} (limit {AMR_E_TOL:g}), first |e| "
+        f"difference > 1e-12 at step {first[1e-12]}, > 1e-9 at step "
+        f"{first[1e-9]}")
+    if not (len(ref) >= AMR_ROW3_STEPS and not flips
+            and worst <= AMR_E_TOL):
+        raise AssertionError("AMR row 3 prefix against the JAX trace")
+    del h
+
+    # (c) row 4 resumed at NE 2,745, twice
+    ck = adrv.load_checkpoint("runs/amr_ckpt_row4.pkl")
+    runs = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        h = adrv.resume_amr_hydro(ck, Options(**AMR_ROW1), device=dev)
+        setup = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(t_final=0.6, ref_threshold=1e-3, resume=ck,
+                  max_steps=ck["steps"] + AMR_ROW4_ATTEMPTS - 1)
+        if k == 0:
+            res, tr, wall = _amr_run(h, **kw)
+            peak = torch.cuda.max_memory_allocated()
+        else:
+            with count_syncs() as c:
+                res, tr, _ = _amr_run(h, **kw)
+        runs.append((h, res, tr))
+    (ha, ra, ta), (hb, rb, tb) = runs
+    acc = [r for r in ta if "t" in r]
+    same = _same_state(ha, hb) and ta == tb
+    _amr_line(f"(c) row 4 resumed, {AMR_ROW4_ATTEMPTS} attempts", ha, ra,
+              wall, peak)
+    log(f"[15 amr] (c) NE {len(ck['forest']['leaves'])}, "
+        f"{ck['xT'].shape[1]} true H1 nodes at the checkpoint; setup "
+        f"{setup:.3f} s; {len(acc)} accepted steps, step_ms "
+        f"{1e3 * wall / len(acc):.1f} (stepping "
+        f"{1e3 * ra['seconds']['stepping'] / len(acc):.1f}, host rebuild "
+        f"{1e3 * ra['seconds']['rebuild'] / len(acc):.1f}); host syncs "
+        f"{c['syncs']} ({c['syncs'] / len(acc):.1f} per accepted step, "
+        f"counted in the second run); two runs bitwise equal: {same}")
+    worst, bad, first9 = 0.0, [], None
+    for r, (ti, ne, en) in zip(acc, AMR_ROW4_JAX):
+        d = abs(r["e_norm"] - en) / en
+        worst = max(worst, d)
+        if first9 is None and d > 1e-9:
+            first9 = ti
+        if r["ti"] != ti or r["NE"] != ne:
+            bad.append(ti)
+    log(f"[15 amr] (c) against the JAX package's continuation: "
+        f"{len(AMR_ROW4_JAX)} steps, NE differences at {bad or 'none'}, "
+        f"max |e| rel {worst:.3e} (limit {AMR_E_TOL:g}), first > 1e-9 at "
+        f"step {first9}")
+    if not (same and len(acc) == len(AMR_ROW4_JAX) and not bad
+            and worst <= AMR_E_TOL):
+        raise AssertionError("AMR row 4 resume")
+    del ha, hb, runs
+
+    # (d) the CLI's -amr route
+    counts = read_counts()
+    run, counts_cli, wall, out = drive(AMR_CLI)
+    counts = {k: counts[k] + counts_cli[k] for k in counts}
+    ne0 = int(out.split("initial AMR mesh: ")[1].split()[0])
+    lines = [ln for ln in out.splitlines() if ln.startswith("step")]
+    ens = [float(ln.split("|e| = ")[1].split()[0]) for ln in lines]
+    log(f"[15 amr] (d) CLI {' '.join(AMR_CLI)}: {len(lines)} step lines in "
+        f"{wall:.3f} s, NE {ne0} -> {run['NE']}, last "
+        f"{lines[-1] if lines else None!r}")
+    if not (lines and all(math.isfinite(e) for e in ens)
+            and run["NE"] > ne0):
+        raise AssertionError("the CLI's -amr route")
+    secs = time.perf_counter() - t_phase
+    log(f"[15 amr] hand-kernel launches in the AMR runs: {counts} (all 0: "
+        f"the AMR q-update is plain torch); phase {secs:.1f} s")
+    if any(counts.values()):
+        raise AssertionError("a hand-written kernel launched on the AMR "
+                             "path")
+
+
 def main():
     t0 = time.perf_counter()
     dev = phase_device()
@@ -1437,6 +1672,7 @@ def main():
     launches[("lattice", F64)] += phase_solver_options(dev, ref, ref_setup)
     launches[("lattice", F64)] += phase_sweep(dev)
     phase_simplex(dev)
+    phase_amr(dev)
     # launches come from the main-path runs only; the packed layout is on
     # none of them
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",

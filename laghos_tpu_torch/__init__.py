@@ -5,9 +5,9 @@ step on segment/quad/hex meshes, partial assembly (the whole-lattice
 operators on Cartesian meshes, the gather path elsewhere) or full assembly,
 with the pointwise quadrature physics and the Ozaki split as hand-written
 CUDA kernels (csrc/qphys.cu, csrc/split.cu), the reference's CLI and its
-I/O.  It imports neither JAX nor `laghos_tpu`, and changes no global torch
-default at import: every tensor is built with an explicit device and
-dtype.
+I/O, the simplex solver and the AMR variant (`amr/`).  It imports neither
+JAX nor `laghos_tpu`, and changes no global torch default at import:
+every tensor is built with an explicit device and dtype.
 """
 
 __version__ = "0.1.0"

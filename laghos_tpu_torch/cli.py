@@ -11,10 +11,12 @@ tetrahedron meshes such as cube01_tet run the simplex solver), the
 whole-lattice operators on Cartesian meshes, --precond
 jacobi|auto|kron|schwarz, the on-device adaptive-dt loop (--device-loop),
 the Ozaki f64 mode (--ozaki), the output flags (-visit, -print, -vis, -k),
--mb, -err, --checkpoint/--restore, --debug-nans and --profile.  The flags
-of the modules not ported yet (distribution, AMR) and the TPU knob --mxu
-are accepted by the parser and then refused with NotImplementedError
-naming the ROADMAP item that ports them.
+-mb, -err, --checkpoint/--restore, --debug-nans and --profile, and the
+AMR variant (-amr with -rt/-dt, e.g. `-p 1 -m square01_quad -rs 4 -tf 0.8
+-amr`).  The flags of the module not ported yet (distribution, -amr with
+-nd or -rp among them) and the TPU knob --mxu are accepted by the parser
+and then refused with NotImplementedError naming the ROADMAP item that
+ports them.
 
 Where the JAX package turns on `jax_debug_nans`, --debug-nans here checks
 the outputs of every phase of the step for non-finite values and raises
@@ -52,9 +54,6 @@ _NOT_PORTED = [
     (("-sfc", "--sfc-partition"), "sfc", False, "A11"),
     (("--halo",), "halo", False, "A11"),
     (("--pencil",), "pencil", True, "A11"),
-    (("-amr", "--enable-amr"), "amr", False, "A13"),
-    (("-rt", "--ref-threshold"), "ref_threshold", True, "A13"),
-    (("-dt", "--deref-threshold"), "deref_threshold", True, "A13"),
     (("--mxu",), "mxu", True, "'Not to port' (a TPU MXU knob)"),
 ]
 
@@ -143,6 +142,14 @@ def build_parser():
                         "inverse on Cartesian meshes), auto (kron where "
                         "available, else jacobi), schwarz (element-block "
                         "additive Schwarz)")
+    p.add_argument("-amr", "--enable-amr", action="store_true", dest="amr",
+                   help="adaptive mesh refinement (problem 1 only; "
+                        "amr/laghos.cpp:106-113)")
+    p.add_argument("-rt", "--ref-threshold", type=float, default=2e-4,
+                   dest="ref_threshold", help="AMR refinement threshold")
+    p.add_argument("-dt", "--deref-threshold", type=float, default=0.75,
+                   dest="deref_threshold",
+                   help="AMR derefinement threshold (0 = no derefinement)")
     p.add_argument("--device-loop", action="store_true", dest="device_loop",
                    help="keep the adaptive-dt control flow on the device "
                         "(t, dt and the step counters as device scalars, "
@@ -229,6 +236,51 @@ def _main_simplex(args, m, device, t_setup) -> CliRun:
     return CliRun(res, th, setup_seconds, None)
 
 
+def _main_amr(args, device):
+    """AMR run (amr/laghos.cpp): RefineAtVertex initial mesh, viscosity-
+    estimator refinement, density-based derefinement, as
+    `laghos_tpu.cli._main_amr`.  Problem 1 only, f64; blast energy is the
+    variant's fixed 0.25 and h0 its fixed 0.5/order_v (SetH0).  Returns
+    run_amr's summary."""
+    from .amr.driver import run_amr
+    from .amr.forest import Forest
+    from .amr.solver import AMRHydro
+
+    if args.problem != 1:
+        raise SystemExit("AMR only supported for problem 1.")
+    base = {"square01_quad": (2, (2, 2), (1.0, 1.0)),
+            "cube01_hex": (3, (2, 2, 2), (1.0, 1.0, 1.0))}
+    name = args.mesh.rsplit("/", 1)[-1].removesuffix(".mesh")
+    if name in base:
+        dim, base_n, sizes = base[name]
+    else:
+        dim = args.dim
+        base_n = (args.nx, args.ny, args.nz)[:dim]
+        sizes = (args.xwidth, args.ywidth, args.zwidth)[:dim]
+    f = Forest(dim, base_n, sizes, max_depth=args.rs)
+    # initial mesh: RefineAtVertex at the blast corner, rs times, WITHOUT
+    # 2:1 balancing (amr/laghos.cpp:199-209)
+    for _ in range(args.rs):
+        corner = [k for k in f.leaf_list() if all(v == 0 for v in k[1])]
+        f.refine(corner, balance=False)
+    opt = Options(problem=1, blast_energy=0.25, order_v=args.order_v,
+                  order_e=args.order_e, order_q=args.order_q,
+                  cfl=args.cfl, cg_tol=args.cg_tol,
+                  cg_max_iter=args.cg_max_iter,
+                  ode_solver=args.ode_solver)
+    h = AMRHydro(f, opt, h0=0.5 / args.order_v, device=device)
+    print(f"Number of zones in the initial AMR mesh: {h.NE}")
+    res = run_amr(h, t_final=args.t_final,
+                  ref_threshold=args.ref_threshold,
+                  deref_threshold=args.deref_threshold,
+                  max_steps=args.max_steps, vis_steps=args.vis_steps,
+                  verbose=True)
+    print(f"step {res['steps']:5d},\tt = {res['t']:.4f},"
+          f"\tdt = {res['dt']:.6f},\t|e| = {res['e_norm']:.10e}"
+          f"  NE={res['NE']}")
+    return res
+
+
 @dataclasses.dataclass
 class CliRun:
     result: driver.RunResult
@@ -276,12 +328,16 @@ def _profiler(args, device):
         on_trace_ready=lambda prof: prof.export_chrome_trace(path))
 
 
-def main(argv=None) -> CliRun:
+def main(argv=None):
+    """Run the command line `argv`: returns a CliRun, or with -amr the
+    AMR driver's summary dict."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = setup(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    if args.amr:
+        return _main_amr(args, device)
 
     t_setup = time.perf_counter()
     m = make_mesh(args)

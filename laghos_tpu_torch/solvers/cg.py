@@ -24,6 +24,9 @@ last iteration at which it read the flag still set, the earliest its own
 stop could have been.  A solve whose count repeats the previous one's
 then reads the flag three times near the end and runs no iteration past
 its convergence; a count that jumps costs one solve of late reads.
+With `graph` on the card, the iterations replay a CUDA graph of one
+iteration (the same kernels, so the same bits) instead of launching each
+kernel from the host.
 """
 
 from __future__ import annotations
@@ -35,6 +38,47 @@ import torch
 
 # the longest run of iterations without a flag read under `reads`
 _READ_PERIOD = 16
+
+
+def _graphed(iterate, state):
+    """Static copies of the CG state and a function that runs the next
+    iteration on them: its first call runs one eager iteration on a side
+    stream (the warm-up) and captures a CUDA graph of `iterate`, every
+    later call replays the graph.
+
+    The graph holds the same kernels as an eager iteration, so a graphed
+    solve repeats the eager one bit for bit; it saves the host its launch
+    work per kernel.  The iteration number lives on the device and
+    advances in the graph."""
+    static = [t.clone() for t in state]
+    it_t = torch.ones((), dtype=state[7].dtype, device=state[7].device)
+    graph = torch.cuda.CUDAGraph()
+
+    def body():
+        for dst, src in zip(static, iterate(tuple(static), it_t)):
+            dst.copy_(src)
+        it_t.add_(1)
+
+    calls = [0]
+
+    def replay():
+        if calls[0]:
+            graph.replay()
+        else:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            # torch.cuda.graph synchronizes and empties the allocator's
+            # cache before the capture, which frees the private memory pools
+            # of earlier solves' graphs: capturing with capture_begin/end
+            # alone kept them, and a row of AMR steps ran out of the card's
+            # 80 GB
+            with torch.cuda.graph(graph):
+                body()
+        calls[0] += 1
+    return static, replay
 
 
 class CGResult(NamedTuple):
@@ -55,6 +99,8 @@ def cg(
     precond: Optional[Callable] = None,   # (C, n) -> (C, n)
     x0: Optional[torch.Tensor] = None,    # (C, n) warm start
     reads: Optional[list] = None,         # [previous stop] or [None]
+    graph: bool = False,                  # on the card: replay iterations
+                                          # from a CUDA graph
 ) -> CGResult:
     M = precond if precond is not None else (lambda r: r)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
@@ -81,13 +127,8 @@ def cg(
     den = _dot(d, Ad)
     iters = torch.where(active, max_iter, 0)
 
-    near = max_iter + 1 if reads is None or reads[0] is None else reads[0] - 2
-    it = seen = 1
-    while it <= max_iter:
-        if reads is None or (it - 1) % _READ_PERIOD == 0 or it >= near:
-            if not bool(active.any()):
-                break
-            seen = it
+    def iterate(state, it):
+        x, r, d, Ad, nom, den, active, iters = state
         # Breakdown guard: an SPD operator gives den > 0; den <= 0 can only
         # be roundoff noise, so the column freezes at its current iterate
         # (mfem CGSolver prints "not positive definite" here).
@@ -111,7 +152,25 @@ def cg(
         Ad = torch.where(act, apply_A(d), Ad)
         den = torch.where(active, _dot(d, Ad), den)
         nom = torch.where(active, betanom, nom)
+        return (x, r, d, Ad, nom, den, active, iters)
+
+    state = (x, r, d, Ad, nom, den, active, iters)
+    replay = None
+    if graph and b.is_cuda:
+        state, replay = _graphed(iterate, state)
+    near = max_iter + 1 if reads is None or reads[0] is None else reads[0] - 2
+    it = seen = 1
+    while it <= max_iter:
+        if reads is None or (it - 1) % _READ_PERIOD == 0 or it >= near:
+            if not bool(state[6].any()):
+                break
+            seen = it
+        if replay is None:
+            state = iterate(state, it)
+        else:
+            replay()
         it += 1
+    x, active, iters = state[0], state[6], state[7]
     if reads is not None:
         reads[0] = seen + 1
     return CGResult(x, iters, ~active)

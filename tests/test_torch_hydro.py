@@ -165,8 +165,8 @@ def test_cli_subprocess_smoke():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-nd", "2"], "A11"), (["-rt", "1e-3"], "A13"), (["-rp", "1"], "A11"),
-    (["--halo"], "A11"), (["-amr"], "A13"),
+    (["-nd", "2"], "A11"), (["-amr", "-nd", "2"], "A11"),
+    (["-rp", "1"], "A11"), (["--halo"], "A11"), (["-sfc"], "A11"),
     (["--mxu", "bf16"], "Not to port")])
 def test_cli_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=item):

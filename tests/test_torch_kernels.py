@@ -491,3 +491,72 @@ def test_simplex_assembly_on_card_repeats():
         assert torch.equal(hg._mass_apply(u.to(dev)), y)
     S, _, steps = hg.run(0.6, max_steps=2)
     assert steps == 3 and bool(torch.isfinite(S["e"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_amr_gathers_on_card_repeat(dim):
+    """The AMR operator's P and P^T gather tables and its constrained mass
+    apply (the incidence assembly, where the JAX package scatter-adds) on
+    a graded, non-2:1 forest: on the card against the CPU at round-off, and
+    bit for bit equal to themselves over 50 applies."""
+    from laghos_tpu_torch.amr.forest import Forest
+    from laghos_tpu_torch.amr.solver import AMRHydro
+
+    dev = _card()
+
+    def forest():
+        f = Forest(dim, (2,) * dim, (1.0,) * dim, max_depth=3)
+        for _ in range(3):
+            f.refine([k for k in f.leaf_list() if not any(k[1])],
+                     balance=False)
+        return f
+
+    opt = Options(problem=1, blast_energy=0.25, order_v=2, order_e=1)
+    hc = AMRHydro(forest(), opt, h0=0.25, device="cpu")
+    hg = AMRHydro(forest(), opt, h0=0.25, device=dev)
+    rng = np.random.default_rng(5)
+    uT = torch.tensor(rng.normal(size=(dim, hc.nt)))
+    yL = torch.tensor(rng.normal(size=(dim, hc.nn)))
+    ops = [("P", hc._p_apply, hg._p_apply, uT),
+           ("P^T", hc._pT_apply, hg._pT_apply, yL),
+           ("mass", hc.mass_apply, hg.mass_apply, uT)]
+    for name, fc, fg, u in ops:
+        y_cpu = fc(u)
+        y = fg(u.to(dev))
+        torch.cuda.synchronize()
+        assert float((y.cpu() - y_cpu).abs().max()) <= \
+            1e-13 * float(y_cpu.abs().max()), name
+        for _ in range(50):
+            assert torch.equal(fg(u.to(dev)), y), name
+
+
+@pytest.mark.cuda
+def test_graphed_cg_matches_eager():
+    """The CG's iterations replayed from a CUDA graph (`cg(graph=True)`,
+    the AMR velocity solve) give the eager solve's bits and iteration
+    count, on the constrained mass of a graded 3D forest at its
+    300-iteration cap and at a converging tolerance."""
+    from laghos_tpu_torch.amr.forest import Forest
+    from laghos_tpu_torch.amr.solver import AMRHydro
+    from laghos_tpu_torch.solvers.cg import cg
+
+    dev = _card()
+    f = Forest(3, (2, 2, 2), (1.0,) * 3, max_depth=2)
+    for _ in range(2):
+        f.refine([k for k in f.leaf_list() if not any(k[1])],
+                 balance=False)
+    h = AMRHydro(f, Options(problem=1, blast_energy=0.25), h0=0.25,
+                 device=dev)
+    b = torch.tensor(np.random.default_rng(9).normal(size=(1, 3 * h.nt)),
+                     device=dev)
+    b = h.mass_apply(b.reshape(3, -1)).reshape(1, -1)
+
+    def apply(u):
+        return h.mass_apply(u.reshape(3, -1)).reshape(1, -1)
+
+    for tol, reads in ((1e-8, None), (1e-13, [None]), (1e-13, [40])):
+        res = [cg(apply, b, tol, 300, reads=None if reads is None
+                  else list(reads), graph=g) for g in (False, True)]
+        assert torch.equal(res[0].x, res[1].x), tol
+        assert torch.equal(res[0].iters, res[1].iters), tol
