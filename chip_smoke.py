@@ -80,7 +80,25 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    true nodes a component) for 21 attempts twice, bitwise equal, against
    the JAX package's continuation, with the host syncs per accepted step;
    one CLI run with -amr.  No hand-written kernel may launch there: the
-   AMR q-update is plain torch, as it is plain JAX.
+   AMR q-update is plain torch, as it is plain JAX;
+16. distributed runs (`laghos_tpu_torch/parallel/`): (a) the flagship
+   over slabs at world size 1 on NCCL, against phase 11's single-device
+   run (bitwise printed); (b) the flagship through the CLI on 4 ranks
+   sharing the card (`-nd 4 --halo --dist-backend gloo`: NCCL refuses two
+   ranks on one card, so the planes and all-reduces go through the host),
+   21 steps twice, bitwise equal, against (a) at the JAX package's
+   distributed bounds (steps, t at 1e-13, |e| and energy at 1e-11, CG-H1
+   within 1 %), drift <= 1e-12, every rank's q-lattice kernel launches
+   reported to rank 0; on 4 ranks, 5 steps each: (c) pencils 2x2 against
+   (b) at step 5, (d) element chunks (the element kernel) against phase
+   11's gather run, (f) the device loop bit for bit the host loop, whose
+   |e| at step 5 is (b)'s bit for bit, (g) the replicated layout at rs3
+   against phase 9's run, and in f32 (the f32 element kernel) against the
+   f64 one at 1e-4; on 2 ranks: (e) Ozaki slabs at rs3 (the split
+   kernel on both) against phase 11's Ozaki run, (h)
+   `batch.sweep(n_devices=2)` of phase 13's members, each bit for bit its
+   phase 13 result.  Any rank's failure fails the phase.  Its times say
+   nothing about scaling: four processes share one card.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -1037,7 +1055,7 @@ def phase_checkpoint():
     if not (same and a.steps == b.steps == 10 and (a.t, a.dt) == (b.t, b.dt)):
         raise AssertionError("the resumed run differs from the "
                              "uninterrupted one")
-    return sum(c["lattice"] for c in (c1, c2, c3))
+    return sum(c["lattice"] for c in (c1, c2, c3)), a
 
 
 def phase_io():
@@ -1134,13 +1152,14 @@ def _gather_pair(dev):
         out.append((r, buf.getvalue().splitlines(), wall, counts))
     (ra, la, wa, ca), (rb, lb, wb, cb) = out
     _same_runs(ra, rb, la, lb, "11 gather")
+    ra.S = None                    # phase 16 reads the scalars only
     log(f"[11 device loop] gather: {rb.steps} steps bitwise equal to the "
         f"host loop (step lines too), step_ms host {1e3 * wa / ra.steps:.3f}"
         f" / device {1e3 * wb / rb.steps:.3f} (untimed), CG-H1 "
         f"{rb.h1_iters}, |e| {rb.e_norm!r}, element kernel launches "
         f"{ca['element']} + {cb['element']}")
     del h
-    return ca["element"] + cb["element"]
+    return ca["element"] + cb["element"], ra
 
 
 def _syncs(h, steps, device_loop):
@@ -1175,7 +1194,8 @@ def phase_device_loop(dev):
     and with --device-loop, bit for bit, with step_ms and host syncs per
     accepted step of both; the gather path and the Ozaki lattice path
     likewise for a few steps.  Returns (the host run's RunResult, its
-    setup seconds, launches by kernel)."""
+    setup seconds, launches by kernel, the host-loop RunResults of the
+    gather and Ozaki pairs without their states)."""
     launches = {("lattice", F64): 0}
     runs = _loop_pair(FLAGSHIP_RUN, "11 flagship")
     for (run, counts, wall, _), name in zip(runs, ("host", "device")):
@@ -1210,20 +1230,22 @@ def phase_device_loop(dev):
         raise AssertionError("the device loop did not cut the host syncs")
     del h
     torch.cuda.empty_cache()
-    launches[("element", F64)] = _gather_pair(dev)
+    launches[("element", F64)], gather_ref = _gather_pair(dev)
     torch.cuda.empty_cache()
     runs = _loop_pair(OZAKI_RUN, "11 ozaki")
     for run, counts, wall, _ in runs:
         launches[("lattice", F64)] += counts["lattice"]
         launches["split"] = launches.get("split", 0) + counts["split"]
     r = runs[1][0].result
+    oz_ref = runs[0][0].result
+    oz_ref.S = None
     log(f"[11 device loop] ozaki rs3: {r.steps} steps bitwise equal to the "
         f"host loop, wall host {runs[0][2]:.3f} / device {runs[1][2]:.3f} s "
         f"(setup included), |e| {r.e_norm!r}, kernel launches "
         f"{runs[1][1]}")
     del runs
     torch.cuda.empty_cache()
-    return ref, setup, launches
+    return ref, setup, launches, {"gather": gather_ref, "ozaki": oz_ref}
 
 
 # ----------------------------------------------------------- phase 12 --
@@ -1336,9 +1358,23 @@ def phase_sweep(dev):
         f"{[round(x, 6) for x in out['t'].tolist()]}, CG-H1 "
         f"{out['h1_iters'].tolist()}; every member bitwise equal to its "
         f"separate card run; lattice kernel launches {counts['lattice']}")
+    digests = [member_digest(out, i) for i in range(len(SWEEP_ENERGIES))]
     del h, Sb, out
     torch.cuda.empty_cache()
-    return counts["lattice"]
+    return counts["lattice"], digests
+
+
+def member_digest(out, i):
+    """SHA-256 of sweep member i's final state and scalars: equal digests
+    are equal bits."""
+    import hashlib
+
+    d = hashlib.sha256()
+    for k in ("x", "v", "e"):
+        d.update(out["S"][k][i].detach().cpu().numpy().tobytes())
+    for k in ("t", "dt", "steps", "crashed", "h1_iters", "l2_iters"):
+        d.update(out[k][i].detach().cpu().numpy().tobytes())
+    return d.hexdigest()
 
 
 # ----------------------------------------------------------- phase 14 --
@@ -1654,6 +1690,348 @@ def phase_amr(dev):
                              "path")
 
 
+# ----------------------------------------------------------- phase 16 --
+# the flagship over 4 ranks sharing the card (gloo: NCCL refuses two ranks
+# on one card), through the CLI; the library runs of the phase take
+# DIST_STEPS accepted steps
+DIST_RANKS = 4
+DIST_CLI = FLAGSHIP_RUN + ["-nd", str(DIST_RANKS), "--halo",
+                           "--dist-backend", "gloo"]
+DIST_STEPS = 5
+DIST_RS = 3                # refinements of the rs3 runs of (e) and (g)
+DIST_TIMEOUT = 300.0       # a deadlocked launch fails instead of hanging
+
+
+def _summary(r):
+    return {"steps": r.steps, "t": r.t, "dt": r.dt, "e_norm": r.e_norm,
+            "energy_init": r.energy_init, "energy_final": r.energy_final,
+            "h1_iters": r.h1_iters, "l2_iters": r.l2_iters,
+            "norms": dict(r.norms)}
+
+
+def _dist_close(a, b, what, e_tol=1e-11):
+    """The JAX package's distributed bounds (tests/test_slab.py): steps
+    equal, t within 1e-13, |e| and total energy within `e_tol` relative,
+    CG-H1 iterations within 1 %.  Returns |e|'s relative difference."""
+    rel = abs(a["e_norm"] - b["e_norm"]) / b["e_norm"]
+    rel_E = (abs(a["energy_final"] - b["energy_final"])
+             / abs(b["energy_final"]))
+    ok = (a["steps"] == b["steps"] and abs(a["t"] - b["t"]) < 1e-13
+          and rel <= e_tol and rel_E <= e_tol
+          and abs(a["h1_iters"] - b["h1_iters"]) <= 0.01 * b["h1_iters"])
+    if not ok:
+        raise AssertionError(
+            f"{what}: steps {a['steps']} / {b['steps']}, t {a['t']!r} / "
+            f"{b['t']!r}, |e| rel {rel:.3e}, energy rel {rel_E:.3e}, CG-H1 "
+            f"{a['h1_iters']} / {b['h1_iters']} (limit {e_tol:g})")
+    return rel
+
+
+def _drift(a):
+    return abs(a["energy_final"] - a["energy_init"]) / abs(a["energy_init"])
+
+
+def _rank_run(view, tag, out, steps=DIST_STEPS, **kw):
+    """A driver.run of `steps` steps of a rank view, its launch counts
+    reset before and read after, into out[tag]."""
+    from laghos_tpu_torch import driver
+
+    torch.cuda.synchronize()
+    reset_counts()
+    calls = view.qupdate_calls
+    t0 = time.perf_counter()
+    r = driver.run(view, t_final=0.6, max_steps=steps - 1, vis_steps=5, **kw)
+    torch.cuda.synchronize()
+    out[tag] = dict(_summary(r), wall=time.perf_counter() - t0,
+                    counts=read_counts(), calls=view.qupdate_calls - calls)
+    return r
+
+
+def _states_equal(comm, A, B):
+    """Every rank's local states bitwise equal (all-reduced)."""
+    same = all(torch.equal(A[k], B[k]) for k in A)
+    return bool(comm.allreduce_min(torch.tensor([float(same)])))
+
+
+def _rs3_hydro(dtype=F64, **opt):
+    """3D Sedov at DIST_RS refinements (RK2Avg, Jacobi, -cgt 1e-11 unless
+    `opt` says otherwise), built on the host for the rank views."""
+    from laghos_tpu_torch.fem import mesh as fmesh
+    from laghos_tpu_torch.hydro import Hydro, Options
+
+    m = fmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
+    for _ in range(DIST_RS):
+        m = fmesh.uniform_refine(m)
+    opt = {"problem": 1, "ode_solver": 7, "cg_tol": 1e-11,
+           "precond": "jacobi", **opt}
+    return Hydro(m, Options(**opt), dtype=dtype, device="cpu")
+
+
+def dist_ranks_flagship(comm):
+    """Rank function of phase 16 (c), (d), (f), (g) on 4 ranks sharing the
+    card: the flagship's pencils, slabs (host loop, then the device loop)
+    and element chunks, and the replicated layout at rs3."""
+    from laghos_tpu_torch.parallel.chunk_hydro import ChunkHydro
+    from laghos_tpu_torch.parallel.sharding import shard_hydro
+    from laghos_tpu_torch.parallel.slab_hydro import SlabHydro
+
+    out = {}
+    t0 = time.perf_counter()
+    h = flagship_hydro("cpu", cg_tol=1e-11, precond="jacobi")
+    out["setup"] = time.perf_counter() - t0
+    v = SlabHydro(h, comm, (2, 2))
+    _rank_run(v, "pencil", out)
+    del v
+    v = SlabHydro(h, comm)
+    rh = _rank_run(v, "slab host", out)
+    rd = _rank_run(v, "slab device", out, device_loop=True)
+    out["device loop bitwise"] = _states_equal(comm, rh.S, rd.S)
+    del v, rh, rd
+    v = ChunkHydro(h, comm)
+    _rank_run(v, "chunk", out)
+    out["chunk NE"] = v.NE
+    del v, h
+    _rank_run(shard_hydro(_rs3_hydro(), comm), "replicated", out)
+    # in f32 (the f32 element kernel), at the f32 runs' -cgt of phase 5
+    _rank_run(shard_hydro(_rs3_hydro(F32, cg_tol=2e-7), comm),
+              "replicated f32", out)
+    out["peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def dist_ranks_pair(comm):
+    """Rank function of phase 16 (e), (h) on 2 ranks sharing the card:
+    Ozaki slabs at rs3, and batch.sweep(n_devices=2) of phase 13's
+    members."""
+    from laghos_tpu_torch import batch
+    from laghos_tpu_torch.parallel.slab_hydro import SlabHydro
+
+    out = {}
+    h = _rs3_hydro(ozaki=True)
+    _rank_run(SlabHydro(h, comm), "ozaki", out)
+    del h
+    hs = flagship_hydro(comm.device, cg_tol=1e-11, precond="jacobi")
+    Sb = batch.blast_states(hs, SWEEP_ENERGIES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sw = batch.sweep(hs, Sb, t_final=0.6, max_steps=10, n_devices=comm.size,
+                     comm=comm)
+    torch.cuda.synchronize()
+    out["sweep"] = {"wall": time.perf_counter() - t0, "counts": read_counts(),
+                    "calls": hs.qupdate_calls,
+                    "digests": [member_digest(sw, i)
+                                for i in range(len(SWEEP_ENERGIES))]}
+    return out
+
+
+def _only_ranks(infos, layout, what, ozaki=False):
+    """Every rank launched the `layout` kernel once per q-update and no
+    other layout; the split kernel iff Ozaki.  Returns the launches."""
+    n = 0
+    for r, info in enumerate(infos):
+        _only(info["counts"], layout, info["calls"], f"{what} rank {r}",
+              ozaki)
+        n += info["counts"][layout]
+    return n
+
+
+def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
+    """Distributed runs (parallel/): (a) the flagship over slabs at world
+    size 1 on NCCL against phase 11's lattice Jacobi run; (b) the flagship
+    through the CLI over 4 slab ranks sharing the card (gloo), twice,
+    bitwise, against (a); (c) pencils, (d) element chunks, (f) the device
+    loop against the host loop, (g) the replicated layout at rs3, on 4
+    ranks; (e) Ozaki slabs at rs3 and (h) the collective sweep on 2 ranks.
+    Returns the launches by kernel."""
+    from laghos_tpu_torch import cli, driver
+    from laghos_tpu_torch.parallel import comm as pcomm
+    from laghos_tpu_torch.parallel.slab_hydro import SlabHydro
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    p = "[16 distributed]"
+    # (a) world size 1 on NCCL, in this process
+    t0 = time.perf_counter()
+    h = flagship_hydro("cpu", cg_tol=1e-11, precond="jacobi")
+    with pcomm.single("nccl", "cuda") as c:
+        v = SlabHydro(h, c)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = driver.run(v, t_final=0.6, max_steps=FLAGSHIP_STEPS - 1,
+                       vis_steps=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        G = v.to_global(r.S)
+    _only(counts, "lattice", v.qupdate_calls, "16 (a)")
+    add(("lattice", F64), counts["lattice"])
+    one = _summary(r)
+    bitwise = all(torch.equal(G[k], ref.S[k].cpu()) for k in G)
+    rel = abs(one["e_norm"] - ref.e_norm) / ref.e_norm
+    log(f"{p} (a) flagship over slabs, world size 1, NCCL: {one['steps']} "
+        f"steps, |e| {one['e_norm']!r} vs phase 11's lattice Jacobi run "
+        f"{ref.e_norm!r} (rel {rel:.3e}, limit 1e-13; final state bitwise "
+        f"equal: {bitwise}), CG-H1 {one['h1_iters']} vs {ref.h1_iters}; "
+        f"setup {setup:.3f} s (host Hydro + block), step_ms "
+        f"{1e3 * wall / one['steps']:.3f}; lattice kernel launches "
+        f"{counts['lattice']}")
+    if one["steps"] != ref.steps or not rel <= 1e-13:
+        raise AssertionError("16 (a): the world-1 slab run departs from the "
+                             "single-device run")
+    del h, v, r, G
+    torch.cuda.empty_cache()
+
+    # (b) the flagship through the CLI, 4 ranks sharing the card, twice
+    runs_b = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = cli.main(DIST_CLI)
+        wall = time.perf_counter() - t0
+        if any(read_counts().values()):
+            raise AssertionError("16 (b): the parent process launched a "
+                                 "kernel; the ranks run the path")
+        for r_, rk in enumerate(run.ranks):
+            c_ = rk["launches"]
+            if not (c_["lattice"] > 0 and c_["element"] == c_["packed"]
+                    == c_["split"] == 0):
+                raise AssertionError(f"16 (b) rank {r_}: launches {c_}")
+        runs_b.append((run, wall))
+        lines = [ln for ln in run.log.splitlines() if ln.startswith("step")]
+        log(f"{p} (b) run {i + 1}: `python -m laghos_tpu_torch "
+            f"{' '.join(DIST_CLI)}`: {run.result.steps} steps in {wall:.3f} "
+            f"s wall (rank spawn and host setup included; run "
+            f"{run.result.timings['total']:.3f} s, step_ms "
+            f"{1e3 * run.result.timings['total'] / run.result.steps:.3f}); "
+            f"last line {lines[-1]!r}; lattice kernel launches per rank "
+            f"{[rk['launches']['lattice'] for rk in run.ranks]}, NE per "
+            f"rank {[rk['NE'] for rk in run.ranks]}")
+    (b1, _), (b2, _) = runs_b
+    rb1, rb2 = b1.result, b2.result
+    same = (all(torch.equal(rb1.S[k], rb2.S[k]) for k in rb1.S)
+            and rb1.norms == rb2.norms and b1.log == b2.log
+            and (rb1.steps, rb1.t, rb1.dt, rb1.h1_iters, rb1.l2_iters)
+            == (rb2.steps, rb2.t, rb2.dt, rb2.h1_iters, rb2.l2_iters))
+    sb = _summary(rb1)
+    rel_b = _dist_close(sb, one, "16 (b) against (a)")
+    drift_b = _drift(sb)
+    log(f"{p} (b) the two runs bitwise equal (states, lines, t, dt, CG "
+        f"totals): {same}; against (a): |e| rel {rel_b:.3e}, t "
+        f"{sb['t']!r} / {one['t']!r}, CG-H1 {sb['h1_iters']} / "
+        f"{one['h1_iters']}; energy drift {drift_b:.3e}")
+    if not same:
+        raise AssertionError("16 (b): two runs at world size 4 differ")
+    if not drift_b <= 1e-12:
+        raise AssertionError(f"16 (b): drift {drift_b:.3e} > 1e-12")
+    for rk in b1.ranks:
+        add(("lattice", F64), rk["launches"]["lattice"])
+    for rk in b2.ranks:
+        add(("lattice", F64), rk["launches"]["lattice"])
+    e5_b = rb1.norms[DIST_STEPS]
+    del runs_b, b1, b2, rb1, rb2
+
+    # (c), (d), (f), (g) on 4 ranks sharing the card
+    t0 = time.perf_counter()
+    outs = pcomm.launch(dist_ranks_flagship, DIST_RANKS, "gloo", "cuda",
+                        timeout=DIST_TIMEOUT)
+    wall4 = time.perf_counter() - t0
+    o = outs[0]
+    for tag in ("pencil", "slab host", "slab device"):
+        add(("lattice", F64), _only_ranks([x[tag] for x in outs], "lattice",
+                                          f"16 {tag}"))
+    for tag in ("chunk", "replicated"):
+        add(("element", F64), _only_ranks([x[tag] for x in outs], "element",
+                                          f"16 {tag}"))
+    add(("element", F32), _only_ranks([x["replicated f32"] for x in outs],
+                                      "element", "16 replicated f32"))
+    pen, sh, sd = o["pencil"], o["slab host"], o["slab device"]
+    rel_c = abs(pen["e_norm"] - e5_b) / e5_b
+    log(f"{p} (c) pencils 2x2, {pen['steps']} steps: |e| {pen['e_norm']!r} "
+        f"vs (b) at step {DIST_STEPS} {e5_b!r} (rel {rel_c:.3e}, limit "
+        f"1e-11), step_ms {1e3 * pen['wall'] / pen['steps']:.3f}")
+    if pen["steps"] != DIST_STEPS or not rel_c <= 1e-11:
+        raise AssertionError("16 (c): pencils depart from the slabs")
+    rel_d = _dist_close(o["chunk"], _summary(gather_ref),
+                        "16 (d) against phase 11's gather run")
+    log(f"{p} (d) element chunks (NE {o['chunk NE']} a rank), "
+        f"{o['chunk']['steps']} steps: |e| {o['chunk']['e_norm']!r} vs the "
+        f"single-rank gather path {gather_ref.e_norm!r} (rel {rel_d:.3e}), "
+        f"CG-H1 {o['chunk']['h1_iters']} / {gather_ref.h1_iters}, step_ms "
+        f"{1e3 * o['chunk']['wall'] / o['chunk']['steps']:.3f}; element "
+        f"kernel launches per rank "
+        f"{[x['chunk']['counts']['element'] for x in outs]}")
+    same_f = (o["device loop bitwise"] and sh["norms"] == sd["norms"]
+              and all(sh[k] == sd[k] for k in ("steps", "t", "dt",
+                                                "h1_iters", "l2_iters")))
+    log(f"{p} (f) slabs, {sd['steps']} steps: device loop bitwise the host "
+        f"loop (states on every rank, t, dt, norms, CG totals): {same_f}; "
+        f"host loop |e| at step {DIST_STEPS} bitwise (b)'s: "
+        f"{sh['e_norm'] == e5_b}; step_ms host "
+        f"{1e3 * sh['wall'] / sh['steps']:.3f} / device "
+        f"{1e3 * sd['wall'] / sd['steps']:.3f}")
+    if not (same_f and sh["e_norm"] == e5_b):
+        raise AssertionError("16 (f): the distributed device loop differs "
+                             "from the host loop")
+    rep = o["replicated"]
+    e5 = ckpt_ref.norms[DIST_STEPS]
+    rel_g = abs(rep["e_norm"] - e5) / e5
+    log(f"{p} (g) replicated layout at rs3 (4 ranks), {rep['steps']} "
+        f"steps: |e| {rep['e_norm']!r} vs phase 9's single-device run at "
+        f"step {DIST_STEPS} {e5!r} (rel {rel_g:.3e}, limit 1e-11), step_ms "
+        f"{1e3 * rep['wall'] / rep['steps']:.3f}; launch of the 4 ranks "
+        f"{wall4:.3f} s (host setup {o['setup']:.3f} s), peak "
+        f"{o['peak GiB']:.3f} GiB a rank")
+    if rep["steps"] != DIST_STEPS or not rel_g <= 1e-11:
+        raise AssertionError("16 (g): the replicated layout departs from "
+                             "the single-device run")
+    r32 = o["replicated f32"]
+    rel_32 = abs(r32["e_norm"] - rep["e_norm"]) / rep["e_norm"]
+    log(f"{p} (g) the same in f32 (-cgt 2e-7): {r32['steps']} steps, |e| "
+        f"{r32['e_norm']!r}, rel {rel_32:.3e} to the f64 run (limit 1e-4); "
+        f"f32 element kernel launches per rank "
+        f"{[x['replicated f32']['counts']['element'] for x in outs]}")
+    if r32["steps"] != DIST_STEPS or not rel_32 <= 1e-4:
+        raise AssertionError("16 (g): the f32 replicated run departs from "
+                             "the f64 one")
+
+    # (e), (h) on 2 ranks sharing the card
+    t0 = time.perf_counter()
+    outs = pcomm.launch(dist_ranks_pair, 2, "gloo", "cuda",
+                        timeout=DIST_TIMEOUT)
+    wall2 = time.perf_counter() - t0
+    add(("lattice", F64), _only_ranks([x["ozaki"] for x in outs], "lattice",
+                                      "16 (e) ozaki", ozaki=True))
+    add("split", sum(x["ozaki"]["counts"]["split"] for x in outs))
+    oz = outs[0]["ozaki"]
+    rel_e = _dist_close(oz, _summary(oz_ref),
+                        "16 (e) against phase 11's Ozaki run")
+    log(f"{p} (e) Ozaki slabs at rs3 (2 ranks), {oz['steps']} steps: |e| "
+        f"{oz['e_norm']!r} vs the single-rank Ozaki run {oz_ref.e_norm!r} "
+        f"(rel {rel_e:.3e}), CG-H1 {oz['h1_iters']} / {oz_ref.h1_iters}; "
+        f"split launches per rank "
+        f"{[x['ozaki']['counts']['split'] for x in outs]}")
+    sws = [x["sweep"] for x in outs]
+    add(("lattice", F64), _only_ranks(sws, "lattice", "16 (h) sweep"))
+    same_h = all(sw["digests"] == digests for sw in sws)
+    log(f"{p} (h) batch.sweep(n_devices=2) of phase 13's "
+        f"{len(SWEEP_ENERGIES)} members: every member bitwise its phase 13 "
+        f"result on both ranks: {same_h}; {sws[0]['wall']:.3f} s; launch of "
+        f"the 2 ranks {wall2:.3f} s")
+    if not same_h:
+        raise AssertionError("16 (h): the sweep over ranks differs from the "
+                             "single-rank sweep")
+    log(f"{p} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     dev = phase_device()
@@ -1664,15 +2042,20 @@ def main():
     phase_golden_rows()
     fa_res, n_fa = phase_fa(dev)
     launches[("element", F64)] += n_fa
-    launches[("lattice", F64)] += phase_checkpoint() + phase_io()
+    n_ckpt, ckpt_ref = phase_checkpoint()
+    launches[("lattice", F64)] += n_ckpt + phase_io()
     launches[("element", F64)] += phase_repeat(dev, fa_res)
-    ref, ref_setup, more = phase_device_loop(dev)
+    ref, ref_setup, more, refs = phase_device_loop(dev)
     for key, n in more.items():
         launches[key] = launches.get(key, 0) + n
     launches[("lattice", F64)] += phase_solver_options(dev, ref, ref_setup)
-    launches[("lattice", F64)] += phase_sweep(dev)
+    n_sweep, digests = phase_sweep(dev)
+    launches[("lattice", F64)] += n_sweep
     phase_simplex(dev)
     phase_amr(dev)
+    for key, n in phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
+                                    ckpt_ref, digests).items():
+        launches[key] = launches.get(key, 0) + n
     # launches come from the main-path runs only; the packed layout is on
     # none of them
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",

@@ -17,7 +17,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import checkpoint
 from .hydro import Hydro
 from .timing import TimingData, block
 
@@ -149,7 +148,7 @@ def run(
             if on_vis is not None:
                 on_vis(ti, t, S)
             if checkpoint_path is not None:
-                checkpoint.save(checkpoint_path, S, t, dt, ti)
+                hydro.save_checkpoint(checkpoint_path, S, t, dt, ti)
         ti += 1
 
     block(S)
@@ -216,7 +215,7 @@ def _run_device_loop(
             if on_vis is not None:
                 on_vis(ti - 1, t_h, S)
             if checkpoint_path is not None:
-                checkpoint.save(checkpoint_path, S, t_h, dt_h, ti - 1)
+                hydro.save_checkpoint(checkpoint_path, S, t_h, dt_h, ti - 1)
         if done:
             break
 

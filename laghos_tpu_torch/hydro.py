@@ -59,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from . import problems
+from . import checkpoint, problems
 from .device import setup
 from .fem import basis as fb
 from .fem import quadrature as fq
@@ -288,6 +288,26 @@ def segment_loop(qupd, step, guard, dtype, S, t, dt, ti, steps, sj,
             return carry
 
 
+def dense_oz(h1B, h1G, l2B, d, device):
+    """Static Ozaki splits (8 slices, as the JAX package) of the dense
+    element operators, on `device`: the gather path's products and the L2
+    energy CG's in Ozaki mode."""
+    h1bd, h1gd = top.dense_ops(h1B, h1G, d)
+    l2bd, _ = top.dense_ops(l2B, np.zeros_like(l2B), d)
+    gcat = np.concatenate(list(h1gd), axis=0)       # (3NQ, nd)
+
+    def sp(B):
+        return omm.split_static(B, device=device)
+
+    return {
+        "h1": (sp(h1bd.T), sp(h1bd)),
+        "l2": (sp(l2bd.T), sp(l2bd)),
+        "force": (sp(l2bd.T), sp(gcat)),
+        "forceT": (sp(gcat.T), sp(l2bd)),
+        "qup": (sp(gcat.T), sp(l2bd.T)),
+    }
+
+
 class Hydro:
     """All static data and the per-step operators of one run."""
 
@@ -322,18 +342,7 @@ class Hydro:
         d = self.dim = mesh.dim
         NE = self.NE = mesh.num_elems
         pb = opt.problem
-        self.qupdate_calls = 0
-        # the CGs' flag reads: every iteration on the host loop; inside
-        # run_segment, around the previous stop of the same solve site
-        # (solvers/cg.py), remembered across segments
-        self._in_segment = False
-        self._cg_stops = {}
-        self.debug_nans = False
-        self.current_step = 0      # the driver's step number, for messages
-        # IR velocity solve counts (see ir_stats); the inner sweeps add up
-        # on the device, so counting them costs no sync
-        self._ir = {"solves": 0, "outers": 0, "outer_applies": 0}
-        self._ir_inner = None
+        self._init_run_state()
 
         self.source, self.use_visc, self.use_vort = problems.problem_flags(
             pb, d)
@@ -363,22 +372,8 @@ class Hydro:
         self.tables["Winv"] = 1.0 / self.tables["W"]
         self.oz = None
         if opt.ozaki:
-            # dense element operators split once (8 slices, as the JAX
-            # package): the gather path's products and the L2 energy CG
-            h1bd, h1gd = top.dense_ops(h1b.B, h1b.G, d)
+            self.oz = dense_oz(h1b.B, h1b.G, l2b.B, d, self.device)
             l2bd, _ = top.dense_ops(l2b.B, np.zeros_like(l2b.B), d)
-            gcat = np.concatenate(list(h1gd), axis=0)       # (3NQ, nd)
-
-            def sp(B):
-                return omm.split_static(B, device=self.device)
-
-            self.oz = {
-                "h1": (sp(h1bd.T), sp(h1bd)),
-                "l2": (sp(l2bd.T), sp(l2bd)),
-                "force": (sp(l2bd.T), sp(gcat)),
-                "forceT": (sp(gcat.T), sp(l2bd)),
-                "qup": (sp(gcat.T), sp(l2bd.T)),
-            }
         self._sm = (structured.detect_structure(mesh, self.h1.gather,
                                                 opt.order_v)
                     if opt.structured_el else None)
@@ -545,6 +540,22 @@ class Hydro:
             "e": self._dev(torch.tensor(e_b, dtype=dtype)),
         }
 
+    def _init_run_state(self):
+        """The counters and flags a run changes (every Hydro and every
+        rank view starts with these)."""
+        self.qupdate_calls = 0
+        # the CGs' flag reads: every iteration on the host loop; inside
+        # run_segment, around the previous stop of the same solve site
+        # (solvers/cg.py), remembered across segments
+        self._in_segment = False
+        self._cg_stops = {}
+        self.debug_nans = False
+        self.current_step = 0      # the driver's step number, for messages
+        # IR velocity solve counts (see ir_stats); the inner sweeps add up
+        # on the device, so counting them costs no sync
+        self._ir = {"solves": 0, "outers": 0, "outer_applies": 0}
+        self._ir_inner = None
+
     def _dev(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device).contiguous()
 
@@ -686,8 +697,8 @@ class Hydro:
     def _assemble(self, u_e):
         """(..., NE, nd) E-vector assembly to the L-vector."""
         if self._sm is not None:
-            return structured.e_to_l_struct(u_e, self._sm)
-        return mop.e_to_l_gather(u_e, self._inc, self._incmask)
+            return self._halo(structured.e_to_l_struct(u_e, self._sm))
+        return self._halo(mop.e_to_l_gather(u_e, self._inc, self._incmask))
 
     def _l_to_e(self, u):
         """(C, ndof) L-vector -> (C, NE, nd) E-vector."""
@@ -707,14 +718,16 @@ class Hydro:
             y = lzo.force_one_lattice_oz(
                 sJit, self._lat_oz,
                 n_slices=self.opt.ozaki_rhs_slices or None)
-            return fop._flush(y.reshape(self.dim, -1), self.ftz_eps2)
+            return fop._flush(self._halo(y.reshape(self.dim, -1)),
+                              self.ftz_eps2)
         if self._lat is not None:
             # reverse banded chains assemble the L-vector directly (the
             # L2 "ones" evaluate to 1)
             f1 = (lop.force_one_lattice if self.dim == 3
                   else lop.force_one_lattice_2d)
             y = f1(sJit, self._lat["Ts"], self._lat["Tg"])
-            return fop._flush(y.reshape(self.dim, -1), self.ftz_eps2)
+            return fop._flush(self._halo(y.reshape(self.dim, -1)),
+                              self.ftz_eps2)
         if self.oz is not None:
             Fone = fop.force_mult9_oz(self.one_l2, sJit, self.oz["force"],
                                       ftz_eps2=self.ftz_eps2)
@@ -735,11 +748,11 @@ class Hydro:
 
     def _h1_apply_bc(self, u):
         if self._lat_oz is not None:
-            y = lzo.mass_apply_lattice_oz(u, self._lat_oz, self._lat["Dq"],
-                                          self._lat_dims)
+            y = self._halo(lzo.mass_apply_lattice_oz(
+                u, self._lat_oz, self._lat["Dq"], self._lat_dims))
         elif self._lat is not None:
-            y = lop.mass_apply_lattice(u, self._lat["Ts"], self._lat["Dq"],
-                                       self._lat_dims)
+            y = self._halo(lop.mass_apply_lattice(
+                u, self._lat["Ts"], self._lat["Dq"], self._lat_dims))
         else:
             ue = mop.mass_apply_e(self._l_to_e(u), self.massD,
                                   self.tables["H1B"], self.dim,
@@ -784,7 +797,8 @@ class Hydro:
         tol = self.opt.cg_tol
 
         def apply32(u):
-            y = lop.mass_apply_lattice(u, Ts32, Dq32, self._lat_dims)
+            y = self._halo(lop.mass_apply_lattice(u, Ts32, Dq32,
+                                                  self._lat_dims))
             return torch.where(ess, torch.zeros_like(y), y)
 
         # residual slices: the truncation 2^-7S sits about a decade below
@@ -795,12 +809,13 @@ class Hydro:
         s_lo = max(3, s_res - 1)
 
         def apply_res(u, n_slices):
-            y = lzo.mass_apply_lattice_oz(u, self._lat_oz, self._lat["Dq"],
-                                          self._lat_dims, n_slices=n_slices)
+            y = self._halo(lzo.mass_apply_lattice_oz(
+                u, self._lat_oz, self._lat["Dq"], self._lat_dims,
+                n_slices=n_slices))
             return torch.where(ess, torch.zeros_like(y), y)
 
         def rdot(r):
-            return torch.sum(r * r * dinv, dim=-1)
+            return self._dot_h1(r * r, dinv)
 
         if "kron" in self._lat32:
             kron32 = self._lat32["kron"]
@@ -830,7 +845,8 @@ class Hydro:
             if n_active == 0:
                 break
             res = cg(apply32, r.float(), self.opt.cg_ir_inner_tol,
-                     inner_max, precond=prec32, reads=self._reads("ir"))
+                     inner_max, precond=prec32, reads=self._reads("ir"),
+                     dot=self._dot_h1)
             dx = torch.where(active[:, None], res.x.double(),
                              torch.zeros_like(x))
             x = x + dx
@@ -864,7 +880,7 @@ class Hydro:
             return self._cg_velocity_ir(rhs, x0=x0)
         res = cg(self._h1_apply_bc, rhs, self.opt.cg_tol,
                  self.opt.cg_max_iter, precond=self._precond_velocity,
-                 x0=x0, reads=self._reads("h1"))
+                 x0=x0, reads=self._reads("h1"), dot=self._dot_h1)
         return res.x, torch.sum(res.iters)
 
     def _cg_velocity_fa(self, rhs):
@@ -884,6 +900,26 @@ class Hydro:
                  self.opt.cg_max_iter, precond=lambda r: r * self._fa_dinv,
                  reads=self._reads("h1"))
         return res.x.reshape(d, -1), torch.sum(res.iters)
+
+    # ---------------------------------------- hooks of the rank views --
+    # (parallel/): on one device an assembled L-vector is whole and a dot
+    # product is a local sum
+    def _halo(self, y):
+        """An assembled H1 L-vector (C, ndof) with the contributions of
+        the other ranks sharing its dofs added."""
+        return y
+
+    def _dot_h1(self, u, v):
+        """Per-component dot product of H1 L-vectors: (C, n) -> (C,)."""
+        return torch.sum(u * v, dim=-1)
+
+    def _dot_l2(self, u, v):
+        """Dot product of flattened L2 vectors: (1, n) -> (1,)."""
+        return torch.sum(u * v, dim=-1)
+
+    def save_checkpoint(self, path, S, t, dt, step):
+        """Write the snapshot (S, t, dt, step) to `path`."""
+        checkpoint.save(path, S, t, dt, step)
 
     def _reads(self, site):
         """The flag-read state of the CG at `site` (None: every
@@ -951,7 +987,7 @@ class Hydro:
         res = cg(apply_A, e_rhs.reshape(1, -1), self.opt.cg_tol,
                  self.opt.cg_max_iter,
                  x0=None if x0 is None else x0.reshape(1, -1),
-                 reads=self._reads("l2"))
+                 reads=self._reads("l2"), dot=self._dot_l2)
         iters = torch.clamp(res.iters[0], min=1)
         return res.x.reshape(self.NE, self.ld), iters
 

@@ -26,7 +26,11 @@ then reads the flag three times near the end and runs no iteration past
 its convergence; a count that jumps costs one solve of late reads.
 With `graph` on the card, the iterations replay a CUDA graph of one
 iteration (the same kernels, so the same bits) instead of launching each
-kernel from the host.
+kernel from the host.  `dot` replaces the per-column dot product, as in
+`laghos_tpu.solvers.cg`: a distributed solve passes one that sums the
+rank's owned entries across ranks (every rank then reads the same flags
+and stops at the same iteration); a collective cannot sit inside a CUDA
+graph, so such a solve runs with graph=False.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ class CGResult(NamedTuple):
     converged: torch.Tensor   # (C,) bool
 
 
-def _dot(u, v):
+def _sum_dot(u, v):
     return torch.sum(u * v, dim=-1)
 
 
@@ -101,8 +105,10 @@ def cg(
     reads: Optional[list] = None,         # [previous stop] or [None]
     graph: bool = False,                  # on the card: replay iterations
                                           # from a CUDA graph
+    dot: Optional[Callable] = None,       # (C, n), (C, n) -> (C,)
 ) -> CGResult:
     M = precond if precond is not None else (lambda r: r)
+    _dot = dot if dot is not None else _sum_dot
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
 

@@ -95,7 +95,16 @@ def test_sweep_matches_jax_sweep(hydros, swept):
 
 
 def test_sweep_over_devices_raises(hydros):
+    """sweep(n_devices=N) is a collective call on a group of N ranks:
+    outside one (no comm, or a group of another size) it raises
+    (tests/test_torch_dist_comm.py runs it over ranks)."""
+    from laghos_tpu_torch.parallel import comm
+
     h, _ = hydros
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="group of 2 ranks"):
         batch.sweep(h, batch.blast_states(h, ENERGIES), t_final=0.1,
                     n_devices=2)
+    with comm.single("gloo", "cpu") as c:
+        with pytest.raises(ValueError, match="group of 2 ranks"):
+            batch.sweep(h, batch.blast_states(h, ENERGIES), t_final=0.1,
+                        n_devices=2, comm=c)

@@ -165,10 +165,15 @@ def test_cli_subprocess_smoke():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-nd", "2"], "A11"), (["-amr", "-nd", "2"], "A11"),
-    (["-rp", "1"], "A11"), (["--halo"], "A11"), (["-sfc"], "A11"),
+    (["-amr", "-nd", "2"], "A11b"), (["-amr", "-nd", "4", "--halo"], "A11b"),
+    (["-amr", "-rp", "1", "-nd", "2"], "A11b"),
+    (["-amr", "-nd", "2", "-sfc"], "A11b"),
+    (["-amr", "-nd", "4", "--halo", "--pencil", "2x2"], "A11b"),
     (["--mxu", "bf16"], "Not to port")])
 def test_cli_refuses_unported_flags(argv, item):
+    """What the port leaves out is refused naming its ROADMAP item: the
+    AMR variant across ranks (A11b) and the TPU knob --mxu.  The other
+    distribution flags run (tests/test_torch_dist_cli.py)."""
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-d", "cpu"] + argv)
 

@@ -123,6 +123,10 @@ def test_port_imports_no_jax():
     names = {p.name for p in paths}
     assert {"omm.py", "assemble.py", "golden.py", "sedov_tool.py", "io.py",
             "vis.py", "checkpoint.py", "sedov.py"} <= names
+    # the distributed modules (parallel/)
+    assert {"comm.py", "partition.py", "scaling.py", "halo.py", "view.py",
+            "slab_hydro.py", "chunk_hydro.py", "sharding.py", "segment.py",
+            "runs.py", "probes.py"} <= names
     bad = []
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
