@@ -98,7 +98,21 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    kernel on both) against phase 11's Ozaki run, (h)
    `batch.sweep(n_devices=2)` of phase 13's members, each bit for bit its
    phase 13 result.  Any rank's failure fails the phase.  Its times say
-   nothing about scaling: four processes share one card.
+   nothing about scaling: four processes share one card;
+17. the AMR variant across ranks (`parallel.sharding.shard_amr`): (a)
+   row 1's 60-attempt prefix at world size 1 on NCCL, bit for bit phase 15
+   (a); (b) the converged 2D trajectory TRAJ on 4 gloo ranks sharing the
+   card, record for record a single-card run (t and dt at 1e-12, |e| at
+   1e-10), refining and derefining, each rank's element count printed
+   after every placement, and a second run of its first 5 attempts
+   bitwise equal to the first's records (cut: four ranks sharing the
+   card take ~9.5 ms a CG iteration); (c) row 4 resumed from the JAX
+   checkpoint (NE 2,745) on 2 gloo ranks for 3 attempts (cut from phase
+   15's 21), NE per attempt equal to phase 15 (c), |e| within
+   AMR_E_TOL, with step_ms split and the collectives a step; (d) the
+   CLI's -amr -nd 2 on phase 15 (d)'s arguments, its step lines equal in
+   step, t, dt and NE.  No hand-written kernel launches on any rank; the
+   gloo cells' times say nothing about scaling.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -1576,6 +1590,7 @@ def phase_amr(dev):
         runs.append((h,) + _amr_run(h, t_final=0.8, max_steps=60))
     (ha, ra, ta, wall), (hb, rb, tb, _) = runs
     same = _same_state(ha, hb) and ta == tb
+    refs = {"row1": (ra, ta, ha.state)}
     steps, ne, en = AMR_ROW1_PINNED
     rel = abs(ra["e_norm"] - en) / en
     _amr_line("(a) row 1 prefix, 60 attempts", ha, ra, wall,
@@ -1641,6 +1656,7 @@ def phase_amr(dev):
         runs.append((h, res, tr))
     (ha, ra, ta), (hb, rb, tb) = runs
     acc = [r for r in ta if "t" in r]
+    refs["row4"] = ta
     same = _same_state(ha, hb) and ta == tb
     _amr_line(f"(c) row 4 resumed, {AMR_ROW4_ATTEMPTS} attempts", ha, ra,
               wall, peak)
@@ -1682,12 +1698,14 @@ def phase_amr(dev):
     if not (lines and all(math.isfinite(e) for e in ens)
             and run["NE"] > ne0):
         raise AssertionError("the CLI's -amr route")
+    refs["cli"] = out
     secs = time.perf_counter() - t_phase
     log(f"[15 amr] hand-kernel launches in the AMR runs: {counts} (all 0: "
         f"the AMR q-update is plain torch); phase {secs:.1f} s")
     if any(counts.values()):
         raise AssertionError("a hand-written kernel launched on the AMR "
                              "path")
+    return refs
 
 
 # ----------------------------------------------------------- phase 16 --
@@ -2032,6 +2050,242 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     return launches
 
 
+# ----------------------------------------------------------- phase 17 --
+# the AMR variant across ranks.  TRAJ is tests/test_torch_dist_amr.py's
+# trajectory (2D, 16 elements refined to 127 and derefined to 118 in 25
+# attempts, the velocity CG converged to 1e-12), whose records hold over
+# ranks at 1e-12 / 1e-10 where the capped CG of the BASELINE rows would
+# carry round-off into the decisions
+AMR_TRAJ = dict(AMR_ROW1, cg_tol=1e-12, cg_max_iter=2000)
+AMR_TRAJ_RUN = dict(t_final=0.8, vis_steps=5, deref_threshold=0.9,
+                    max_steps=24)
+AMR_DIST_RANKS = 4
+# cuts (PERF.md section 4): four ranks sharing the card take ~9.5 ms a CG
+# iteration (one host-staged all-reduce each), so (b)'s second run repeats
+# only the first AMR_TRAJ_REPEAT_ATTEMPTS attempts (the first refinement
+# included) of the first; (c) runs AMR_ROW4_DIST_ATTEMPTS of phase 15
+# (c)'s 21 attempts
+AMR_TRAJ_REPEAT_ATTEMPTS = 5
+AMR_ROW4_DIST_ATTEMPTS = 3
+AMR_DIST_CLI = AMR_CLI + ["-nd", "2", "--dist-backend", "gloo"]
+_CLI_LINE = (r"step\s+(\d+),\s+t = ([\d.]+),\s+dt = ([\d.]+),\s+"
+             r"\|e\| = ([\deE+.-]+)\s+NE=(\d+)")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def amr_rank_runs(comm, specs):
+    """Rank function of phase 17: `parallel.runs.run_amr_view` of each
+    spec, with its wall seconds and the rank's collectives counted."""
+    from laghos_tpu_torch.parallel import runs
+
+    calls = [0]
+    for name in ("allreduce_sum", "allreduce_min", "allreduce_max",
+                 "all_gather"):
+        def counted(*a, _fn=getattr(comm, name), **k):
+            calls[0] += 1
+            return _fn(*a, **k)
+        setattr(comm, name, counted)
+    out = []
+    for sp in specs:
+        _sync(comm.device)
+        n0, t0 = calls[0], time.perf_counter()
+        o = runs.run_amr_view(comm, sp)
+        _sync(comm.device)
+        o["wall"], o["collectives"] = time.perf_counter() - t0, calls[0] - n0
+        out.append(o)
+    return out
+
+
+def _amr_spec(f, opt, run):
+    return {"forest": dict(dim=f.dim, base_n=f.base_n, sizes=f.sizes,
+                           max_depth=f.max_depth, leaves=list(f.leaf_list())),
+            "h0": 0.25, "opt": opt, "run": run}
+
+
+def _amr_launch(R, specs, what):
+    """Every rank's amr_rank_runs of `specs` on R gloo ranks sharing the
+    card; raises unless the ranks agree on every record and state bit and
+    none launched a hand-written kernel."""
+    from laghos_tpu_torch.parallel import comm as pcomm
+
+    t0 = time.perf_counter()
+    outs = pcomm.launch(amr_rank_runs, R, "gloo", "cuda", specs,
+                        timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        for a, b in zip(o, outs[0]):
+            if a["trace"] != b["trace"] or not all(
+                    np.array_equal(a["state"][k], b["state"][k])
+                    for k in "xve"):
+                raise AssertionError(f"17 {what}: rank {r} left lockstep")
+            if any(a["launches"].values()):
+                raise AssertionError(f"17 {what}: rank {r} launched "
+                                     f"{a['launches']}")
+    return outs, wall
+
+
+def _traj_forest():
+    from laghos_tpu_torch.amr.forest import Forest
+
+    f = Forest(2, (2, 2), (1.0, 1.0), max_depth=3)
+    f.refine(list(f.leaf_list()))
+    return f
+
+
+def phase_amr_distributed(dev, refs):
+    """The AMR variant across ranks (`parallel.sharding.shard_amr`):
+    (a) BASELINE AMR row 1's 60-attempt prefix at world size 1 on NCCL
+    (the CG graphed: the all-reduce of one rank's vector is the identity,
+    the dt minimum and the gathers go through NCCL), bit for bit phase 15
+    (a); (b) TRAJ on AMR_DIST_RANKS gloo ranks sharing the card against a
+    single-card TRAJ (records equal, t and dt at 1e-12, |e| at 1e-10),
+    with a refinement and a derefinement and each rank's element count
+    after every placement printed, then a second run of its first
+    AMR_TRAJ_REPEAT_ATTEMPTS attempts, bitwise its records; (c) row 4
+    resumed from the JAX checkpoint (NE 2,745) on 2 gloo ranks for
+    AMR_ROW4_DIST_ATTEMPTS attempts (cut from 21), NE per attempt equal to
+    phase 15 (c) and |e| within AMR_E_TOL, with step_ms split and the
+    collectives a step; (d) the CLI's `-amr -nd 2 --dist-backend gloo` on
+    phase 15 (d)'s arguments, its step lines equal in step, t, dt and NE.
+    No hand-written kernel may launch on any rank.  The gloo cells share
+    one card, their collectives staged through the host: their times say
+    nothing about scaling."""
+    import re
+
+    from laghos_tpu_torch.amr import driver as adrv
+    from laghos_tpu_torch.amr.solver import AMRHydro
+    from laghos_tpu_torch.hydro import Options
+    from laghos_tpu_torch.parallel import comm as pcomm
+    from laghos_tpu_torch.parallel.sharding import shard_amr
+
+    p = "[17 amr ranks]"
+    t_phase = time.perf_counter()
+    # (a) row 1's prefix, world size 1 on NCCL, in this process
+    ra, ta, Sa = refs["row1"]
+    reset_counts()
+    with pcomm.single("nccl", "cuda") as c:
+        h = AMRHydro(_amr_graded(2, 4), Options(**AMR_ROW1), h0=0.25,
+                     device="cpu")
+        shard_amr(h, c)
+        res, tr, wall = _amr_run(h, t_final=0.8, max_steps=60)
+        counts = read_counts()
+        n = len(tr)
+        same = tr == ta and all(torch.equal(h.state[k], Sa[k])
+                                for k in "xve")
+        _amr_line(f"(a) world size 1, NCCL, row 1, {n} attempts", h, res,
+                  wall, torch.cuda.max_memory_allocated())
+    log(f"{p} (a) bit for bit phase 15 (a) (trace records, final state): "
+        f"{same}; |e| {res['e_norm']!r} vs {ra['e_norm']!r}; launches "
+        f"{counts}")
+    if not same or any(counts.values()):
+        raise AssertionError("17 (a): world size 1 departs from one card")
+    del h
+
+    # (b) TRAJ on AMR_DIST_RANKS gloo ranks, twice, and on the card alone
+    h = AMRHydro(_traj_forest(), Options(**AMR_TRAJ), h0=0.25, device=dev)
+    reset_counts()
+    r1, t1, wall1 = _amr_run(h, **{k: v for k, v in AMR_TRAJ_RUN.items()
+                                   if k != "vis_steps"})
+    if any(read_counts().values()):
+        raise AssertionError("17 (b): the single-card TRAJ launched a kernel")
+    del h
+    spec = _amr_spec(_traj_forest(), AMR_TRAJ, AMR_TRAJ_RUN)
+    short = _amr_spec(_traj_forest(), AMR_TRAJ, dict(
+        AMR_TRAJ_RUN, max_steps=AMR_TRAJ_REPEAT_ATTEMPTS - 1))
+    outs, wall_b = _amr_launch(AMR_DIST_RANKS, [spec, short], "(b)")
+    b1, b2 = outs[0]
+    same_b = (b2["trace"] == b1["trace"][:AMR_TRAJ_REPEAT_ATTEMPTS]
+              and len(b2["trace"]) == AMR_TRAJ_REPEAT_ATTEMPTS
+              and any(r.get("changed") for r in b2["trace"]))
+    worst = {"t": 0.0, "dt": 0.0, "e_norm": 0.0}
+    bad = len(b1["trace"]) != len(t1)
+    for a, b in zip(b1["trace"], t1):
+        for k in a:
+            if k in worst:
+                worst[k] = max(worst[k], abs(a[k] - b[k]) / abs(b[k]))
+            elif a[k] != b[k]:
+                bad = True
+    changed = [r for r in b1["trace"] if r.get("changed")]
+    events = (any(r["n_ref"] for r in changed),
+              any(r["n_deref"] for r in changed))
+    log(f"{p} (b) TRAJ on {AMR_DIST_RANKS} gloo ranks sharing the card: "
+        f"{b1['summary']['steps']} steps, NE {b1['summary']['NE']}, |e| "
+        f"{b1['summary']['e_norm']!r}; a second run's "
+        f"{AMR_TRAJ_REPEAT_ATTEMPTS} attempts (a mesh change among them) "
+        f"bitwise its first {AMR_TRAJ_REPEAT_ATTEMPTS} records: {same_b}; "
+        f"against one card ({r1['steps']} steps, |e| {r1['e_norm']!r}, "
+        f"{wall1:.3f} s): records equal {not bad}, max rel t "
+        f"{worst['t']:.3e}, dt {worst['dt']:.3e} (limit 1e-12), |e| "
+        f"{worst['e_norm']:.3e} (limit 1e-10); refinement, derefinement "
+        f"{events}; run walls {b1['wall']:.3f} / {b2['wall']:.3f} s "
+        f"(stepping {b1['summary']['seconds']['stepping']:.3f}, rebuild "
+        f"{b1['summary']['seconds']['rebuild']:.3f}), "
+        f"{b1['collectives']} collectives a rank a run, launch {wall_b:.3f} "
+        f"s; CG-H1 {b1['h1_iters']} iterations")
+    for r, o in enumerate(outs):
+        log(f"{p} (b) rank {r} elements after each placement: "
+            f"{o[0]['elements']}")
+    if not (same_b and not bad and worst["t"] <= 1e-12
+            and worst["dt"] <= 1e-12 and worst["e_norm"] <= 1e-10
+            and all(events)):
+        raise AssertionError("17 (b): TRAJ over ranks")
+    del outs, b1, b2
+
+    # (c) row 4 resumed on 2 gloo ranks
+    ck_path = "runs/amr_ckpt_row4.pkl"
+    ck = adrv.load_checkpoint(ck_path)
+    K = AMR_ROW4_DIST_ATTEMPTS
+    spec = {"ckpt": ck_path, "opt": AMR_ROW1,
+            "run": dict(t_final=0.6, ref_threshold=1e-3, vis_steps=10**9,
+                        max_steps=ck["steps"] + K - 1)}
+    outs, wall_c = _amr_launch(2, [spec], "(c)")
+    o = outs[0][0]
+    mine = o["trace"][len(ck["trace"]):]
+    ref4 = refs["row4"][:len(mine)]
+    acc = [r for r in mine if "t" in r]
+    ne_same = [(r["ti"], r.get("NE")) for r in mine] == [
+        (r["ti"], r.get("NE")) for r in ref4] and len(mine) == K
+    worst = max((abs(a["e_norm"] - b["e_norm"]) / b["e_norm"]
+                 for a, b in zip(mine, ref4) if "t" in a), default=0.0)
+    sec = o["summary"]["seconds"]
+    log(f"{p} (c) row 4 resumed on 2 gloo ranks, {K} attempts (NE "
+        f"{len(ck['forest']['leaves'])} at the checkpoint): {len(acc)} "
+        f"accepted steps, NE per attempt equal to phase 15 (c): {ne_same} "
+        f"({[r['NE'] for r in mine]}), max |e| rel {worst:.3e} (limit "
+        f"{AMR_E_TOL:g}); step_ms {1e3 * o['wall'] / max(len(acc), 1):.1f} "
+        f"(stepping {1e3 * sec['stepping'] / max(len(acc), 1):.1f}, host "
+        f"rebuild {1e3 * sec['rebuild'] / max(len(acc), 1):.1f}; wall "
+        f"{o['wall']:.3f} s with the host setup, launch {wall_c:.3f} s), "
+        f"{o['collectives'] / max(len(acc), 1):.1f} collectives a step a "
+        f"rank, CG-H1 {o['h1_iters']} iterations; elements a rank "
+        f"{[x[0]['elements'] for x in outs]}")
+    if not (ne_same and worst <= AMR_E_TOL):
+        raise AssertionError("17 (c): row 4 over ranks")
+    del outs, o
+
+    # (d) the CLI over 2 gloo ranks
+    run, counts, wall, _ = drive(AMR_DIST_CLI)
+    mine = re.findall(_CLI_LINE, run["log"])
+    ref = re.findall(_CLI_LINE, refs["cli"])
+    same_d = len(mine) == len(ref) > 0 and all(
+        (a[0], a[1], a[2], a[4]) == (b[0], b[1], b[2], b[4])
+        for a, b in zip(mine, ref))
+    rank_counts = [rk["launches"] for rk in run["ranks"]]
+    log(f"{p} (d) CLI {' '.join(AMR_DIST_CLI)}: {len(mine)} step lines in "
+        f"{wall:.3f} s, equal to phase 15 (d)'s in step, t, dt, NE: "
+        f"{same_d}; last {mine[-1] if mine else None}; launches: parent "
+        f"{counts}, ranks {rank_counts}")
+    if not same_d or any(counts.values()) or any(
+            v for c_ in rank_counts for v in c_.values()):
+        raise AssertionError("17 (d): the CLI's -amr -nd 2")
+    log(f"{p} hand-kernel launches on every rank of (a)-(d): 0; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     t0 = time.perf_counter()
     dev = phase_device()
@@ -2052,10 +2306,13 @@ def main():
     n_sweep, digests = phase_sweep(dev)
     launches[("lattice", F64)] += n_sweep
     phase_simplex(dev)
-    phase_amr(dev)
+    amr_refs = phase_amr(dev)
     for key, n in phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
                                     ckpt_ref, digests).items():
         launches[key] = launches.get(key, 0) + n
+    # the AMR path launches no hand-written kernel (phase 17 raises if one
+    # does): its launches add 0 to every entry
+    phase_amr_distributed(dev, amr_refs)
     # launches come from the main-path runs only; the packed layout is on
     # none of them
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",

@@ -15,6 +15,12 @@ traces and either package resumes the other's checkpoints.  The state
 stays on the device; each accepted step reads the dt estimate, then the
 (NE,) refinement indicators and |e| in one copy (`AMRHydro.indicators`),
 besides the CG's convergence reads.
+
+Over ranks (`parallel.sharding.shard_amr`) every rank runs this loop on
+values equal on every rank (the dt minimum, the gathered indicators), so
+the ranks take the same branches; they check that (t, dt, NE) agree after
+each mesh change and at the end, the wall limit is decided on the largest
+of the ranks' clocks, and rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ def run_amr(
     summary holds "mesh_changes" and "seconds": {"rebuild": host seconds
     in the refine/derefine transfers and rebuilds, "stepping": the rest of
     the loop}."""
+    comm = hydro.comm
     if resume is not None:
         t = float(resume["t"])
         dt = float(resume["dt"])
@@ -89,7 +96,7 @@ def run_amr(
             last_step = True
         if steps == max_steps or (
                 wall_limit is not None
-                and time.perf_counter() - t_loop > wall_limit):
+                and _elapsed(comm, t_loop) > wall_limit):
             last_step = True
         S_old, t_old = S, t
         S_new, dt_est, visc_max, _ = hydro.advance(S, dt, count_stage1)
@@ -171,6 +178,7 @@ def run_amr(
             count_stage1 = True     # AMRUpdate invalidates quad data
             n_changes += 1
             t_rebuild += time.perf_counter() - t0
+            _check_lockstep(comm, t, dt, hydro.NE, "mesh change")
         if trace is not None:
             trace.append({
                 "ti": ti, "t": t, "dt": dt, "NE": hydro.NE,
@@ -188,6 +196,7 @@ def run_amr(
         save_checkpoint(ckpt_path, hydro, t, dt, steps, ti,
                         count_stage1, norms, trace)
     e_final = hydro.e_norm()
+    _check_lockstep(comm, t, dt, hydro.NE, "run")
     loop = time.perf_counter() - t_loop
     return {"steps": ti - 1, "t": t, "dt": dt, "e_norm": e_final,
             "norms": norms, "NE": hydro.NE, "mesh_changes": n_changes,
@@ -195,19 +204,37 @@ def run_amr(
                         "stepping": loop - t_rebuild}}
 
 
+def _elapsed(comm, t0):
+    """Seconds since `t0`; over ranks the largest rank's, the same on every
+    rank, so that the wall limit ends every rank at one attempt."""
+    s = time.perf_counter() - t0
+    if comm is None:
+        return s
+    return float(comm.allreduce_max(torch.tensor(s, dtype=torch.float64)))
+
+
+def _check_lockstep(comm, t, dt, NE, what):
+    if comm is not None:
+        from ..parallel.segment import check_lockstep
+
+        check_lockstep(comm, (t, dt, NE), what)
+
+
 def save_checkpoint(path, hydro, t, dt, steps, ti, count_stage1, norms,
                     trace=None):
     """Atomically write a resumable AMR run checkpoint: a pickle of NumPy
-    arrays and Python scalars, the JAX package's layout."""
+    arrays and Python scalars, the JAX package's layout.  Over ranks a
+    collective: the global state is gathered and rank 0 writes it."""
     f = hydro.forest
+    xT, vT, e = hydro.global_state()
+    if hydro.comm is not None and hydro.comm.rank != 0:
+        return
     ck = {
         "forest": {"dim": f.dim, "base_n": f.base_n, "sizes": f.sizes,
                    "max_depth": f.max_depth, "leaves": list(f.leaf_list())},
         "x0_T": np.asarray(hydro.x0_T, np.float64),
         "h0": float(hydro._h0),
-        "xT": hydro.state["x"].double().cpu().numpy(),
-        "vT": hydro.state["v"].double().cpu().numpy(),
-        "e": hydro.state["e"].double().cpu().numpy(),
+        "xT": xT, "vT": vT, "e": e,
         "t": float(t), "dt": float(dt), "steps": int(steps), "ti": int(ti),
         "count_stage1": bool(count_stage1),
         "norms": {int(k): float(v) for k, v in norms.items()},

@@ -32,7 +32,14 @@ Where the port departs from the JAX package:
     package builds at each rebuild (and never reads) is not built;
   * the refinement indicators (the zone-max viscosity, min |v|, max
     density, the blast-vertex test and |e|) are computed on the state's
-    device, and `indicators` copies them to the host in one transfer.
+    device, and `indicators` copies them to the host in one transfer;
+  * each rebuild makes its arrays on the host and then places them on the
+    device (`_place`): all of them, or, over a rank group
+    (`parallel.sharding.shard_amr`), through the `_on_rebuild` callback,
+    one rank's contiguous element chunk and the whole node and true-dof
+    data.  The hook points that cross ranks (`_ranks_sum` after P^T, the dt
+    minimum in `qupdate`, `e_norm`, the indicators' gather and
+    `global_state`) are the identity without a rank group (`comm` None).
 
 The q-update is plain torch, as it is plain JAX in the JAX package: the
 AMR path launches none of the hand-written kernels.
@@ -135,15 +142,19 @@ class AMRHydro:
                                     device=self.device)
         self.h1_solves = 0          # velocity solves since construction
         self._cg_reads = [None]
+        # distribution hooks: parallel.sharding.shard_amr sets the rank
+        # group and a re-placement callback, so that every rebuild places
+        # this rank's element chunk (the JAX package's device_mesh and
+        # _on_rebuild)
+        self.comm = None
+        self._on_rebuild = None
 
         if ckpt is None:
             self._build_space_arrays()
             sp = self.space
             self.x0_T = sp["coords"][sp["true_ids"]].T      # (d, nt)
-            self._build_geometry()
-            self.state = self.make_state(
-                self.x0_T, np.zeros_like(self.x0_T),
-                self._initial_energy())
+            state = (self.x0_T, np.zeros_like(self.x0_T),
+                     self._initial_energy())
         else:
             # resume from a driver checkpoint: the history-dependent
             # pieces are the interpolated initial config x0_T (carried
@@ -153,12 +164,21 @@ class AMRHydro:
             self.x0_T = np.asarray(ckpt["x0_T"], np.float64)
             self._h0 = float(ckpt["h0"])
             self._build_space_arrays()
-            self._build_geometry()
-            self.state = self.make_state(ckpt["xT"], ckpt["vT"], ckpt["e"])
+            state = (ckpt["xT"], ckpt["vT"], ckpt["e"])
+        self._rebuilt(self._build_geometry(), *state)
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
                                device=self.device).contiguous()
+
+    def move_to(self, device):
+        """Run on `device` from now on: the tables move there, and the
+        next placement puts the mesh arrays and the state there."""
+        self.device = device
+        self.tables = {k: v.to(device) for k, v in self.tables.items()}
+        self._vB, self._rB, self._corners, self.h1_iters = (
+            t.to(device) for t in (self._vB, self._rB, self._corners,
+                                   self.h1_iters))
 
     # ------------------------------------------------------------------
     def _build_space_arrays(self):
@@ -204,13 +224,13 @@ class AMRHydro:
         return lmap, pt_idx, pt_w
 
     def _build_geometry(self):
-        """Device tensors of the current forest: gathers, the P / P^T /
-        assembly tables, t=0 geometry, mass data and depths."""
+        """Host (CPU) tensors of the current forest, all elements: the
+        gathers, the P / P^T tables, t=0 geometry, mass data and depths
+        (`_place` puts them on the device)."""
         d = self.dim
         sp = self.space
         NE = self.NE
         lmap, pt_idx, pt_w = self._prolongation_tables()
-        inc, msk = mop.build_incidence(sp["gather"], self.nn)
         ess_true = sp["ess"][:, sp["true_ids"]]
 
         # t=0 geometry on the (possibly interpolated) initial config
@@ -237,28 +257,88 @@ class AMRHydro:
         Bd = top.dense_ops(tb["H1B"], tb["H1G"], d)[0]     # (NQ, nd)
         Mv = np.matmul(Bd.T[None] * rw[:, None, :], Bd)
         L = torch.long
-        self.ctx = {
-            "gather": self._dev(sp["gather"], L),
-            "lmap": self._dev(lmap, L),
-            "true_ids": self._dev(sp["true_ids"], L),
-            "masters": self._dev(sp["masters"], L),
-            "weights": self._dev(sp["weights"]),
-            "pt_idx": self._dev(pt_idx, L),
-            "pt_w": self._dev(pt_w),
-            "inc": self._dev(inc, L),
-            "inc_mask": self._dev(msk),
-            "ess_true": self._dev(ess_true, torch.bool),
-            "rho0DetJ0w": self._dev(rw),
-            "Mv": self._dev(Mv),
-            "Jac0inv": self._dev(Jac0inv),
-            "Me_inv": self._dev(np.linalg.inv(Me)),
-            "depths": self._dev(self.forest.depths()),
+        host = {
+            "gather": (sp["gather"], L),
+            "lmap": (lmap, L),
+            "true_ids": (sp["true_ids"], L),
+            "masters": (sp["masters"], L),
+            "weights": (sp["weights"], None),
+            "pt_idx": (pt_idx, L),
+            "pt_w": (pt_w, None),
+            "ess_true": (ess_true, torch.bool),
+            "rho0DetJ0w": (rw, None),
+            "Mv": (Mv, None),
+            "Jac0inv": (Jac0inv, None),
+            "Me_inv": (np.linalg.inv(Me), None),
+            "depths": (self.forest.depths(), None),
         }
+        return {k: torch.as_tensor(np.asarray(a), dtype=dt or self.dtype)
+                .contiguous() for k, (a, dt) in host.items()}
+
+    def _place(self, host, xT, vT, e, lo=0, hi=None):
+        """Put the host arrays of `_build_geometry` and the state on the
+        device: the element-axis arrays (ELEMENT_KEYS) and the energy for
+        elements [lo, hi) of the leaf order (default: all), the node and
+        true-dof data whole, and the node -> (element, local node)
+        incidence of those elements."""
+        hi = self.NE if hi is None else hi
+        self.elements = (lo, hi)
+        ctx = {k: (v[lo:hi] if k in ELEMENT_KEYS else v).to(self.device)
+               for k, v in host.items()}
+        inc, msk = mop.build_incidence(host["gather"][lo:hi].numpy(),
+                                       self.nn)
+        ctx["inc"] = self._dev(inc, torch.long)
+        ctx["inc_mask"] = self._dev(msk)
+        self.ctx = ctx
+        self.state = self.make_state(xT, vT, e)
         self._cg_reads = [None]
 
+    def _rebuilt(self, host, xT, vT, e):
+        """Place a build (host arrays, the global state): all of it, or
+        through the callback of `parallel.sharding.shard_amr`."""
+        if self._on_rebuild is None:
+            self._place(host, xT, vT, e)
+        else:
+            self._on_rebuild(host, xT, vT, e)
+
     def make_state(self, xT, vT, e):
-        """State dict of (d, nt) / (NE, ld) host arrays on the device."""
-        return {"x": self._dev(xT), "v": self._dev(vT), "e": self._dev(e)}
+        """State dict on the device of (d, nt) / (NE, ld) global host
+        arrays: x and v whole, the energy of this process's elements."""
+        lo, hi = self.elements
+        return {"x": self._dev(xT), "v": self._dev(vT),
+                "e": self._dev(np.asarray(e)[lo:hi])}
+
+    def global_state(self):
+        """(xT, vT, e) of the whole mesh as float64 NumPy arrays; over
+        ranks a collective (the energy chunks all-gathered in rank
+        order)."""
+        xT, vT, e = (self.state[k].double().cpu().numpy()
+                     for k in ("x", "v", "e"))
+        if self.comm is not None:
+            e = np.concatenate(self._gather_chunks(e, lambda n: (n, self.ld)))
+        return xT, vT, e
+
+    def _gather_chunks(self, a, shape_of):
+        """Every rank's float64 array `a` of its element chunk, in rank
+        order, in one collective; raises ValueError unless rank r's has the
+        shape `shape_of(n_r)`, n_r being r's share of the current NE."""
+        parts = self.comm.all_gather(np.ascontiguousarray(a))
+        D, NE = self.comm.size, self.NE
+        for r, p in enumerate(parts):
+            want = shape_of((r + 1) * NE // D - r * NE // D)
+            if p.dtype != np.float64 or p.shape != want:
+                raise ValueError(
+                    f"rank {self.comm.rank}: rank {r} sent a {p.dtype} "
+                    f"{p.shape} chunk, expected float64 {want} (NE {NE})")
+        return parts
+
+    def _one_rank(self):
+        return self.comm is None or self.comm.size == 1
+
+    def _ranks_sum(self, yT):
+        """The sum over the ranks of a partial true vector (the identity on
+        one rank): each rank assembles its chunk's elements only."""
+        return yT if self._one_rank() else self.comm.allreduce_sum(yT)
 
     # ------------------------------------------------------------------
     def _initial_energy(self):
@@ -342,11 +422,14 @@ class AMRHydro:
         """(sJit (NE, NQ, d, d), dt estimate 0-d, zone-max viscosity
         (NE,)) of state S."""
         ctx = self.ctx
-        return amr_qupdate(
+        sJit, dtm, visc = amr_qupdate(
             self._elem(S["x"]), self._elem(S["v"]), S["e"],
             ctx["rho0DetJ0w"], ctx["Jac0inv"], self.tables, self._h0,
             ctx["depths"], dim=self.dim, h1order=self.h1order,
             cfl=self.opt.cfl, gamma=1.4)
+        if self.comm is not None:
+            dtm = self.comm.allreduce_min(dtm)
+        return sJit, dtm, visc
 
     def mass_apply(self, uT):
         """The constrained H1 mass on true dofs (d, nt), essential rows
@@ -358,17 +441,18 @@ class AMRHydro:
         ctx = self.ctx
         ue = self._p_apply(uT)[:, ctx["gather"]]              # (d, NE, nd)
         ye = torch.einsum("eij,cej->cei", ctx["Mv"], ue)
-        yT = self._pT_apply(self._assemble(ye))
+        yT = self._ranks_sum(self._pT_apply(self._assemble(ye)))
         return torch.where(ctx["ess_true"], torch.zeros_like(yT), yT)
 
     def _solve_velocity(self, sJit):
         d = self.dim
         ctx = self.ctx
-        one_l2 = torch.ones((self.NE, self.ld), dtype=self.dtype,
+        one_l2 = torch.ones((sJit.shape[0], self.ld), dtype=self.dtype,
                             device=self.device)
         Fone = fop.force_mult(one_l2, sJit, self.tables, dim=d,
                               ftz_eps2=self.ftz_eps2)
-        rhs = -self._pT_apply(self._assemble(Fone.transpose(0, 1)))
+        rhs = -self._ranks_sum(
+            self._pT_apply(self._assemble(Fone.transpose(0, 1))))
         rhs = torch.where(ctx["ess_true"], torch.zeros_like(rhs), rhs)
 
         def apply_flat(u):
@@ -379,9 +463,13 @@ class AMRHydro:
         # (amr/laghos_solver.cpp:286-296).  On the card its iterations
         # replay a CUDA graph: the graded meshes' masses are ill-conditioned
         # enough that most solves run into cg_max_iter, ~60 small kernels
-        # an iteration
+        # an iteration.  Over several ranks it runs eagerly: its one
+        # collective, the all-reduce in mass_apply, cannot sit inside a
+        # graph; the dots run on vectors equal on every rank, so every rank
+        # stops alike
         res = cg(apply_flat, rhs.reshape(1, -1), self.opt.cg_tol,
-                 self.opt.cg_max_iter, reads=self._cg_reads, graph=True)
+                 self.opt.cg_max_iter, reads=self._cg_reads,
+                 graph=self._one_rank())
         it = torch.sum(res.iters)
         self.h1_iters = self.h1_iters + it
         self.h1_solves += 1
@@ -498,8 +586,7 @@ class AMRHydro:
         new_order = list(self.forest.leaf_list())
         plan = TransferPlan(old_order, new_order, self.dim)
 
-        xT, vT, e_old = (self.state[k].double().cpu().numpy()
-                         for k in ("x", "v", "e"))
+        xT, vT, e_old = self.global_state()
         xL = self._p_apply_np(xT)
         vL = self._p_apply_np(vT)
         x0L = self._p_apply_np(np.asarray(self.x0_T))
@@ -524,8 +611,7 @@ class AMRHydro:
         # essential velocity BCs on the new space
         vT_new[sp["ess"][:, sp["true_ids"]]] = 0.0
         self.x0_T = x0T_new
-        self._build_geometry()
-        self.state = self.make_state(xT_new, vT_new, new_e)
+        self._rebuilt(self._build_geometry(), xT_new, vT_new, new_e)
         return True
 
     def compute_density(self, S):
@@ -536,14 +622,17 @@ class AMRHydro:
         J = qop.jacobians(self._elem(S["x"]), tb["H1B"], tb["H1G"], d)
         D = tb["W"][None, :] * smallmat.det(J, d)
         M = mop.l2_mass_matrices(D, tb["L2B"], d)
-        rt = self.ctx["rho0DetJ0w"].reshape((self.NE,) + (self.nq1,) * d)
-        rhs = top.eval_transpose(rt, tb["L2B"].T, d).reshape(self.NE,
-                                                             self.ld)
+        rt = self.ctx["rho0DetJ0w"].reshape((-1,) + (self.nq1,) * d)
+        rhs = top.eval_transpose(rt, tb["L2B"].T, d).reshape(-1, self.ld)
         return torch.linalg.solve_ex(M, rhs[..., None])[0][..., 0]
 
     def e_norm(self):
+        """|e| of the state; over ranks the sum of squares all-reduced."""
         e = self.state["e"]
-        return float(torch.sqrt(torch.sum(e * e)))
+        sq = torch.sum(e * e)
+        if self.comm is not None:
+            sq = self.comm.allreduce_sum(sq)
+        return float(torch.sqrt(sq))
 
     # ---- GetPerElementMinMax / FindElementsWithVertex equivalents -------
     def _eval_at_gauss(self, vals_e, B):
@@ -584,27 +673,36 @@ class AMRHydro:
         return torch.any(dist2 <= size * size, dim=1)
 
     def elements_with_vertex(self, S, position, size=1e-10):
-        """Leaf indices with a corner vertex within `size` of `position`
-        on the CURRENT (deformed) mesh — FindElementsWithVertex
-        (amr/laghos.cpp:799-820), used for blast-zone deref protection."""
-        return np.where(self._near_vertex(S, position, size).cpu().numpy())[0]
+        """Leaf indices, among this process's elements, with a corner
+        vertex within `size` of `position` on the CURRENT (deformed) mesh —
+        FindElementsWithVertex (amr/laghos.cpp:799-820), used for
+        blast-zone deref protection."""
+        near = self._near_vertex(S, position, size).cpu().numpy()
+        return np.where(near)[0] + self.elements[0]
 
     def indicators(self, S, visc_max, position, size=1e-10):
         """What the AMR block reads, computed on the device and copied to
         the host in one transfer: dict of (NE,) NumPy arrays "est" (the
         zone-max viscosity), "v_min", "rho_max", "near_blast" (bool), and
-        the float "e_norm" of S."""
+        the float "e_norm" of S.  Over ranks each rank computes its chunk's
+        and the chunks are all-gathered in one collective (the squares of
+        |e| summed in rank order), so that every rank decides alike."""
         v_min, _ = self.v_min_max(S)
         e = S["e"]
-        en = torch.sqrt(torch.sum(e * e)).reshape(1)
         flat = torch.cat([visc_max, v_min, self.rho_max(S),
                           self._near_vertex(S, position, size).to(self.dtype),
-                          en]).double().cpu().numpy()
-        NE = self.NE
-        return {"est": flat[:NE], "v_min": flat[NE:2 * NE],
-                "rho_max": flat[2 * NE:3 * NE],
-                "near_blast": flat[3 * NE:4 * NE] > 0.0,
-                "e_norm": float(flat[-1])}
+                          torch.sum(e * e).reshape(1)]).double().cpu().numpy()
+        parts = ([flat] if self.comm is None
+                 else self._gather_chunks(flat, lambda n: (4 * n + 1,)))
+        cols = np.concatenate([p[:-1].reshape(4, -1) for p in parts], axis=1)
+        en = float(np.sqrt(sum(float(p[-1]) for p in parts)))
+        return {"est": cols[0], "v_min": cols[1], "rho_max": cols[2],
+                "near_blast": cols[3] > 0.0, "e_norm": en}
+
+
+# the element-axis arrays, split over ranks; the rest (node and true-dof
+# data) is whole on every rank (`laghos_tpu/parallel/sharding.py:108-109`)
+ELEMENT_KEYS = ("gather", "rho0DetJ0w", "Mv", "Jac0inv", "Me_inv", "depths")
 
 
 def amr_qupdate(x_e, v_e, e_b, rho0DetJ0w, Jac0inv, tables, h0, depths,

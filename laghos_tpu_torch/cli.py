@@ -16,12 +16,14 @@ AMR variant (-amr with -rt/-dt, e.g. `-p 1 -m square01_quad -rs 4 -tf 0.8
 -amr`), and the distributed runs: `-nd N` starts N ranks (one process
 each, parallel/comm.py) over the replicated-vector layout, or with --halo
 over slabs (--pencil DZxDY: pencils) of a raster mesh and element chunks
-of any other mesh (-sfc orders them along a Morton curve first); -rp
-refines after -rs on every route, -epm builds the controlled-scaling mesh.
---dist-backend picks the ranks' backend (nccl for card ranks, the
-default on cuda, one card per rank; gloo for CPU ranks, the default on
-cpu, and for card ranks sharing a card).  Refused with NotImplementedError
-naming the ROADMAP item: -amr with -nd (A11b) and the TPU knob --mxu.
+of any other mesh (-sfc orders them along a Morton curve first); with
+-amr over the element chunks of the forest's leaf order, placed again at
+every mesh change (`parallel.sharding.shard_amr`); -rp refines after -rs
+on every route, -epm builds the controlled-scaling mesh.  --dist-backend
+picks the ranks' backend (nccl for card ranks, the default on cuda, one
+card per rank; gloo for CPU ranks, the default on cpu, and for card ranks
+sharing a card).  Refused with NotImplementedError naming the ROADMAP
+item: the TPU knob --mxu.
 
 A distributed run keeps the JAX CLI's conditions: --restore with --halo is
 refused, --device-loop runs with --halo unless -f or --checkpoint is
@@ -280,15 +282,9 @@ def _main_simplex(args, m, device, t_setup) -> CliRun:
     return CliRun(res, th, setup_seconds, None)
 
 
-def _main_amr(args, device):
-    """AMR run (amr/laghos.cpp): RefineAtVertex initial mesh, viscosity-
-    estimator refinement, density-based derefinement, as
-    `laghos_tpu.cli._main_amr`.  Problem 1 only, f64; blast energy is the
-    variant's fixed 0.25 and h0 its fixed 0.5/order_v (SetH0).  Returns
-    run_amr's summary."""
-    from .amr.driver import run_amr
+def _amr_forest(args):
+    """The initial AMR forest of the mesh flags."""
     from .amr.forest import Forest
-    from .amr.solver import AMRHydro
 
     if args.problem != 1:
         raise SystemExit("AMR only supported for problem 1.")
@@ -308,12 +304,30 @@ def _main_amr(args, device):
     for _ in range(levels):
         corner = [k for k in f.leaf_list() if all(v == 0 for v in k[1])]
         f.refine(corner, balance=False)
+    return f
+
+
+def _main_amr(args, device, comm=None):
+    """AMR run (amr/laghos.cpp): RefineAtVertex initial mesh, viscosity-
+    estimator refinement, density-based derefinement, as
+    `laghos_tpu.cli._main_amr`.  Problem 1 only, f64; blast energy is the
+    variant's fixed 0.25 and h0 its fixed 0.5/order_v (SetH0).  With `comm`
+    this rank's part of a run over ranks: the AMRHydro is built on the host
+    and distributed (`shard_amr`).  Returns run_amr's summary."""
+    from .amr.driver import run_amr
+    from .amr.solver import AMRHydro
+    from .parallel.sharding import shard_amr
+
+    f = _amr_forest(args)
     opt = Options(problem=1, blast_energy=0.25, order_v=args.order_v,
                   order_e=args.order_e, order_q=args.order_q,
                   cfl=args.cfl, cg_tol=args.cg_tol,
                   cg_max_iter=args.cg_max_iter,
                   ode_solver=args.ode_solver)
-    h = AMRHydro(f, opt, h0=0.5 / args.order_v, device=device)
+    h = AMRHydro(f, opt, h0=0.5 / args.order_v,
+                 device="cpu" if comm is not None else device)
+    if comm is not None:
+        shard_amr(h, comm)
     print(f"Number of zones in the initial AMR mesh: {h.NE}")
     res = run_amr(h, t_final=args.t_final,
                   ref_threshold=args.ref_threshold,
@@ -323,6 +337,8 @@ def _main_amr(args, device):
     print(f"step {res['steps']:5d},\tt = {res['t']:.4f},"
           f"\tdt = {res['dt']:.6f},\t|e| = {res['e_norm']:.10e}"
           f"  NE={res['NE']}")
+    if comm is not None:
+        res["ranks"] = _report_ranks(comm, h.ctx["gather"].shape[0])
     return res
 
 
@@ -383,9 +399,6 @@ def main(argv=None):
     AMR driver's summary dict."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    if args.amr and args.n_devices > 1:
-        raise NotImplementedError("-amr with -nd is not ported yet (ROADMAP "
-                                  "A11b: the AMR variant across ranks)")
     if args.n_devices > 1:
         return _main_distributed(args)
     device = setup(args.device)
@@ -438,10 +451,19 @@ def _check_distributed(args, m):
 def _main_distributed(args):
     """-nd N: check the run, build the CUDA kernels once here (the ranks
     load the cached library instead of running N nvcc builds), start N
-    ranks and return rank 0's CliRun."""
+    ranks and return rank 0's CliRun (with -amr its summary, holding its
+    printed lines under "log")."""
     device = setup(args.device)
     backend = args.dist_backend or pcomm.default_backend(device.type)
     pcomm.check_backend(backend, device.type, args.n_devices)
+    if args.amr:
+        # the AMR path launches no hand-written kernel
+        NE = _amr_forest(args).num_leaves
+        if NE < args.n_devices:
+            raise ValueError(f"{NE} elements cannot be split over "
+                             f"{args.n_devices} ranks")
+        return pcomm.launch(_cli_rank, args.n_devices, backend, device.type,
+                            args)[0]
     _check_distributed(args, make_mesh(args))
     if device.type == "cuda":
         from .ops import kernels
@@ -472,12 +494,27 @@ def _cli_rank(comm, args):
     with contextlib.redirect_stdout(out):
         if comm.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(comm.device)
+        if args.amr:
+            res = _main_amr(args, comm.device, comm)
+            return dict(res, log=log.getvalue()) if comm.rank == 0 else None
         t_setup = time.perf_counter()
         m = make_mesh(args)
         print(f"Number of zones in the serial mesh: {m.num_elems}")
         run = _main_tensor(args, m, comm.device, t_setup, comm)
     return (dataclasses.replace(run, log=log.getvalue()) if comm.rank == 0
             else None)
+
+
+def _report_ranks(comm, NE):
+    """Every rank's {"rank", "device", "NE", "launches"} (its zones and its
+    kernel launches, parallel/runs.launches), printed; a collective."""
+    ranks = comm.all_gather({"rank": comm.rank, "device": str(comm.device),
+                             "NE": NE, "launches": launches()})
+    print(f"Ranks: {comm.size} ({comm.backend})")
+    for rk in ranks:
+        print(f"  rank {rk['rank']}: {rk['device']}, {rk['NE']} zones, "
+              f"kernel launches {rk['launches']}")
+    return ranks
 
 
 def _main_tensor(args, m, device, t_setup, comm=None):
@@ -603,10 +640,5 @@ def _main_tensor(args, m, device, t_setup, comm=None):
         print(f"Density L2 error: {err}")
     if comm is None:
         return CliRun(res, h, setup_seconds, fom)
-    ranks = comm.all_gather({"rank": comm.rank, "device": str(comm.device),
-                             "NE": run_h.NE, "launches": launches()})
-    print(f"Ranks: {comm.size} ({comm.backend})")
-    for rk in ranks:
-        print(f"  rank {rk['rank']}: {rk['device']}, {rk['NE']} zones, "
-              f"kernel launches {rk['launches']}")
-    return CliRun(res, None, setup_seconds, fom, ranks=ranks)
+    return CliRun(res, None, setup_seconds, fom,
+                  ranks=_report_ranks(comm, run_h.NE))

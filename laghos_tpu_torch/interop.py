@@ -11,10 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import setup
 
-def state_from_numpy(S: dict, device="cpu", dtype=torch.float64) -> dict:
+
+def state_from_numpy(S: dict, device="cuda", dtype=torch.float64) -> dict:
     """{"x": (dim, ndof), "v": (dim, ndof), "e": (NE, ld)} arrays (any
-    leading axes) -> contiguous tensors on `device`."""
+    leading axes) -> contiguous tensors on `device` ("cuda", the default,
+    or "cpu"; resolved by device.setup: without a card "cuda" raises)."""
+    device = setup(device)
     return {k: torch.tensor(np.asarray(S[k]), dtype=dtype, device=device)
             for k in ("x", "v", "e")}
 

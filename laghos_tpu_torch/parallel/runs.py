@@ -12,6 +12,17 @@ returns the global summary, the same on every rank.  The spec:
      "run": {...}}                        # driver.run keyword arguments
 
 `sweep_ranks` runs the collective sweep, `batch.sweep(n_devices=...)`.
+
+`run_amr_view(comm, spec)`: every rank builds the spec's AMRHydro on the
+host (from a forest or a checkpoint), distributes it (`sharding.shard_amr`)
+and runs `amr.driver.run_amr`.  The spec:
+
+    {"forest": {"dim": 2, "base_n": (2, 2), "sizes": (1.0, 1.0),
+                "max_depth": 3, "leaves": [...]},  # Forest.from_leaves
+     "h0": 0.25,
+     "ckpt": None | path,                 # resume from this checkpoint
+     "opt": {...},                        # hydro.Options fields
+     "run": {...}}                        # run_amr keyword arguments
 """
 
 from __future__ import annotations
@@ -81,3 +92,43 @@ def sweep_ranks(comm, spec, energies, t_final, max_steps) -> dict:
     res["share"] = (comm.rank * B // comm.size,
                     (comm.rank + 1) * B // comm.size)
     return res
+
+
+def run_amr_view(comm, spec) -> dict:
+    """Rank function: the spec's AMR run over the ranks; the trace, the
+    summary and the final global state (the same on every rank), with this
+    rank's element count after its first placement and after each mesh
+    change ("elements") and its kernel launches."""
+    from ..amr import driver as adrv
+    from ..amr.forest import Forest
+    from ..amr.solver import AMRHydro
+    from .sharding import shard_amr
+
+    opt = Options(**spec["opt"])
+    trace, kw = [], dict(spec.get("run", {}))
+    if spec.get("ckpt"):
+        ck = adrv.load_checkpoint(spec["ckpt"])
+        h = adrv.resume_amr_hydro(ck, opt, device="cpu")
+        trace, kw["resume"] = list(ck.get("trace", [])), ck
+    else:
+        h = AMRHydro(Forest.from_leaves(**spec["forest"]), opt,
+                     h0=spec["h0"], device="cpu")
+    shard_amr(h, comm)
+    elements = [h.ctx["gather"].shape[0]]
+    place = h._on_rebuild
+
+    def on_rebuild(*build):
+        place(*build)
+        elements.append(h.ctx["gather"].shape[0])
+
+    h._on_rebuild = on_rebuild
+    res = adrv.run_amr(h, trace=trace, **kw)
+    xT, vT, e = h.global_state()
+    return {"trace": trace, "summary": res, "elements": elements,
+            "state": {"x": xT, "v": vT, "e": e},
+            "h1_iters": int(h.h1_iters), "launches": launches()}
+
+
+def run_amr_views(comm, specs) -> list:
+    """Rank function: `run_amr_view` of each spec in turn, in one launch."""
+    return [run_amr_view(comm, sp) for sp in specs]

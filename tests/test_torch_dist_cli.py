@@ -2,9 +2,9 @@
 without --halo, --pencil, -sfc, -rp and -epm run and print the step lines
 of the one-device run (|e| at 1e-11); the outputs see the global state
 (--checkpoint, -visit) and a replicated run resumes from a checkpoint;
-every refusal (-amr with -nd naming A11b, --restore with --halo, bad
-partitions, nccl on CPU ranks, -fa and simplex meshes with -nd, --mxu)
-raises before any rank starts."""
+every refusal (--restore with --halo, bad partitions, nccl on CPU ranks,
+-fa and simplex meshes with -nd, --mxu) raises before any rank starts.
+`-amr -nd N` is tests/test_torch_dist_amr.py's."""
 
 import os
 import re
@@ -91,7 +91,6 @@ def test_cli_nd_outputs_and_restore(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["-amr", "-nd", "2"], NotImplementedError, "A11b"),
     (["-nd", "2", "--halo", "--restore", "x.npz"], SystemExit, "--halo"),
     (["-nd", "3", "--halo"], ValueError, "divisible"),
     (["-nd", "3", "--halo", "--pencil", "2x2"], ValueError, "needs 4 ranks"),
@@ -101,7 +100,7 @@ def test_cli_nd_outputs_and_restore(tmp_path, capsys):
     (["-nd", "2", "-m", "cube01_tet"], ValueError, "simplex"),
     (["-nd", "2", "-d", "cuda"], RuntimeError, "CUDA"),
     (["--mxu", "bf16"], NotImplementedError, "Not to port"),
-], ids=["amr", "restore_halo", "slab_partition", "pencil_ranks",
+], ids=["restore_halo", "slab_partition", "pencil_ranks",
         "pencil_without_halo", "nccl_on_cpu", "fa", "simplex", "cuda",
         "mxu"])
 def test_cli_refusals(argv, exc, match):

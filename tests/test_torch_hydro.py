@@ -63,7 +63,7 @@ def test_stage_pieces_and_steps_match_jax(dim):
          "v": np.where(ht.ess_mask, 0.0,
                        0.1 * rng.normal(size=S0["v"].shape)),
          "e": S0["e"] + 0.5}
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     Sj = {k: jnp.asarray(v) for k, v in S.items()}
 
     sJ_t, dt_t = ht._qupdate(St)
@@ -165,17 +165,37 @@ def test_cli_subprocess_smoke():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-amr", "-nd", "2"], "A11b"), (["-amr", "-nd", "4", "--halo"], "A11b"),
-    (["-amr", "-rp", "1", "-nd", "2"], "A11b"),
-    (["-amr", "-nd", "2", "-sfc"], "A11b"),
-    (["-amr", "-nd", "4", "--halo", "--pencil", "2x2"], "A11b"),
     (["--mxu", "bf16"], "Not to port")])
 def test_cli_refuses_unported_flags(argv, item):
-    """What the port leaves out is refused naming its ROADMAP item: the
-    AMR variant across ranks (A11b) and the TPU knob --mxu.  The other
-    distribution flags run (tests/test_torch_dist_cli.py)."""
+    """What the port leaves out is refused naming its ROADMAP item: the TPU
+    knob --mxu.  The distribution flags run (tests/test_torch_dist_cli.py,
+    tests/test_torch_dist_amr.py)."""
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-d", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-amr", "-nd", "2"], ["-amr", "-nd", "4", "--halo"],
+    ["-amr", "-rp", "1", "-nd", "2"], ["-amr", "-nd", "2", "-sfc"],
+    ["-amr", "-nd", "4", "--halo", "--pencil", "2x2"]],
+    ids=["nd", "halo", "rp", "sfc", "pencil"])
+def test_cli_amr_nd_starts_the_ranks(argv, monkeypatch):
+    """`-amr -nd N` starts N ranks of the CLI's rank function (the AMR
+    variant over element chunks, whatever the conforming-mesh layout flags
+    say, as the JAX CLI's shard_amr route), with the CPU's gloo default;
+    the launch is stubbed here, tests/test_torch_dist_amr.py runs it."""
+    calls = []
+
+    def launch(fn, world, backend, device, args):
+        calls.append((fn, world, backend, device, args))
+        return [{"log": ""}]
+
+    monkeypatch.setattr(cli.pcomm, "launch", launch)
+    cli.main(["-d", "cpu", "-m", "square01_quad"] + argv)
+    (fn, world, backend, device, args), = calls
+    assert fn is cli._cli_rank and args.amr
+    assert (world, backend, device) == (int(argv[argv.index("-nd") + 1]),
+                                        "gloo", "cpu")
 
 
 def test_cli_cuda_without_card_raises():

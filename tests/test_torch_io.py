@@ -171,16 +171,34 @@ def test_checkpoints_load_across_packages(tmp_path):
     jcheckpoint.save(str(tmp_path / "j.npz"),
                      {k: jnp.asarray(v) for k, v in S.items()}, 0.25,
                      1e-3, 7)
-    St, t, dt, step = tcheckpoint.load(str(tmp_path / "j.npz"))
+    St, t, dt, step = tcheckpoint.load(str(tmp_path / "j.npz"),
+                                          device="cpu")
     assert (t, dt, step) == (0.25, 1e-3, 7)
     for k in S:
         np.testing.assert_array_equal(St[k].numpy(), S[k])
-    tcheckpoint.save(str(tmp_path / "t.npz"), state_from_numpy(S), 0.5,
-                     2e-3, 9)
+    tcheckpoint.save(str(tmp_path / "t.npz"),
+                     state_from_numpy(S, device="cpu"), 0.5, 2e-3, 9)
     Sj, t, dt, step = jcheckpoint.load(str(tmp_path / "t.npz"))
     assert (t, dt, step) == (0.5, 2e-3, 9)
     for k in S:
         np.testing.assert_array_equal(np.asarray(Sj[k]), S[k])
+
+
+@pytest.mark.parametrize("loader", ["checkpoint", "state"])
+def test_loaders_default_to_the_card(loader, tmp_path):
+    """checkpoint.load and interop.state_from_numpy put their tensors on
+    the card unless the caller asks for the CPU: without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    S = {"x": np.zeros((2, 9)), "v": np.zeros((2, 9)),
+         "e": np.zeros((4, 4))}
+    path = str(tmp_path / "t.npz")
+    tcheckpoint.save(path, state_from_numpy(S, device="cpu"), 0.5, 2e-3, 9)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if loader == "checkpoint":
+            tcheckpoint.load(path)
+        else:
+            state_from_numpy(S)
 
 
 @pytest.mark.parametrize("extra", [[], ["-fa"]])
@@ -217,7 +235,8 @@ def _vtu_arrays(path):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_vtu_matches_jax(dim, tmp_path):
     ht, hj, S = _pair(dim, 1, **GATHER)
-    tio.write_vtu(str(tmp_path / "t.vtu"), ht, state_from_numpy(S))
+    tio.write_vtu(str(tmp_path / "t.vtu"), ht,
+                  state_from_numpy(S, device="cpu"))
     jio.write_vtu(str(tmp_path / "j.vtu"), hj,
                   {k: jnp.asarray(v) for k, v in S.items()})
     at, ct = _vtu_arrays(tmp_path / "t.vtu")
@@ -232,7 +251,7 @@ def test_data_collection_files(tmp_path):
     ht, _, S = _pair(2, 1, **GATHER)
     dc = tio.DataCollection(str(tmp_path / "out" / "run"), ht)
     dc.save(0, 0.0, ht.S0)
-    dc.save(5, 0.1, state_from_numpy(S))
+    dc.save(5, 0.1, state_from_numpy(S, device="cpu"))
     pvd = (tmp_path / "out" / "run.pvd").read_text()
     assert pvd.count("<DataSet") == 2 and "run_000005.vtu" in pvd
     z = np.load(tmp_path / "out" / "run_000005.npz")
@@ -307,7 +326,8 @@ def _blocks(stream):
 @pytest.mark.parametrize("dim,p", [(2, 2), (2, 3), (3, 2)])
 def test_glvis_payloads_match_jax(dim, p):
     ht, hj, S = _pair(dim, 1, order_v=p, order_e=p - 1, **GATHER)
-    st = _glvis_streams(tvis.GLVisSession, ht, state_from_numpy(S))
+    st = _glvis_streams(tvis.GLVisSession, ht,
+                        state_from_numpy(S, device="cpu"))
     sj = _glvis_streams(jvis.GLVisSession, hj,
                         {k: jnp.asarray(v) for k, v in S.items()})
     assert sorted(st) == sorted(sj) == ["Density",
@@ -349,7 +369,8 @@ def test_sedov_solution_matches_jax(dim):
 
 def test_sedov_density_error_matches_jax():
     ht, hj, S = _pair(3, 1, **GATHER)
-    et = tsedov.sedov_density_l2_error(ht, state_from_numpy(S), 0.1, 1.0)
+    et = tsedov.sedov_density_l2_error(
+        ht, state_from_numpy(S, device="cpu"), 0.1, 1.0)
     ej = jsedov.sedov_density_l2_error(
         hj, {k: jnp.asarray(v) for k, v in S.items()}, 0.1, 1.0)
     assert et == pytest.approx(ej, rel=1e-12)
@@ -358,7 +379,7 @@ def test_sedov_density_error_matches_jax():
 @pytest.mark.parametrize("dim,problem", [(2, 0), (3, 0), (2, 4)])
 def test_velocity_error_norms_match_jax(dim, problem):
     ht, hj, S = _pair(dim, problem, **GATHER)
-    nt = tverify.velocity_error_norms(ht, state_from_numpy(S))
+    nt = tverify.velocity_error_norms(ht, state_from_numpy(S, device="cpu"))
     nj = jverify.velocity_error_norms(
         hj, {k: jnp.asarray(v) for k, v in S.items()})
     for a, b in zip(nt, nj):

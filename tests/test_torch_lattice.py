@@ -156,7 +156,8 @@ def test_qupdate_and_force_lattice_match_jax(name, rs):
     physics), F.1 and F^T.v against JAX's lattice functions, on cubic and
     non-cubic raster meshes (a swapped axis cannot hide on 4x2x2 or 7x3)."""
     ht, hj, S = _pair(name, rs)
-    St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
+    St = state_from_numpy(S, device="cpu")
+    Sj = {k: jnp.asarray(v) for k, v in S.items()}
     s_t, d_t = ht._qupdate(St)
     s_j, d_j = hj._jq(Sj)
     assert s_t.shape == (ht.dim ** 2,) + tuple(s_j[0].shape)
@@ -172,7 +173,7 @@ def test_qupdate_and_force_lattice_match_jax(name, rs):
 def test_qupdate_lattice_branches_match_jax(dim, visc, vort):
     """The vorticity and inviscid branches, called directly."""
     ht, hj, S = _pair(*{2: ("rectangle01_quad", 0), 3: ("box01_hex", 0)}[dim])
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     ft, fj = ((tlat.qupdate3d_lattice, jlat.qupdate3d_lattice) if dim == 3
               else (tlat.qupdate2d_lattice, jlat.qupdate2d_lattice))
     kw = dict(h1order=2.0, cfl=0.5, use_viscosity=visc, use_vorticity=vort)
@@ -249,7 +250,7 @@ def test_kron_absent_when_free_set_not_axis_product():
 def _lattice_qdata(ht, S):
     """q-lattice inputs of the 3D lattice physics at state S, with
     inverted and NaN points."""
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     lat, dims = ht._lat, ht._lat_dims
     J9 = torch.stack(tlat.grad9_lattice(St["x"].reshape((3,) + dims),
                                         lat["Ts"], lat["Tg"]))
@@ -367,7 +368,8 @@ def test_steps_match_jax_default_hydro(name, rs, precond):
     JAX package's default Hydro: states, dt estimates and CG counts."""
     ht, hj, S = _pair(name, rs, precond=precond)
     assert ("kron" in ht._lat) == (precond == "kron") == ("kron" in hj._lat)
-    St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
+    St = state_from_numpy(S, device="cpu")
+    Sj = {k: jnp.asarray(v) for k, v in S.items()}
     dt_t, sj_t = ht.dt_estimate_full(St)
     dt_j, sj_j = hj.dt_estimate_full(Sj)
     dt = 0.5 * float(dt_j)
@@ -396,7 +398,8 @@ def test_q4q3_lattice_step_matches_jax():
     ht = THydro(mt, TOptions(**opt), device="cpu")
     hj = JHydro(mj, JOptions(**opt))
     S = {k: np.asarray(v) for k, v in hj.S0.items()}
-    St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
+    St = state_from_numpy(S, device="cpu")
+    Sj = {k: jnp.asarray(v) for k, v in S.items()}
     dt_t, sj_t = ht.dt_estimate_full(St)
     dt_j, sj_j = hj.dt_estimate_full(Sj)
     assert float(dt_t) == pytest.approx(float(dt_j), rel=1e-12)

@@ -72,7 +72,7 @@ def _t(a):
 # ------------------------------------------------ pointwise physics -----
 def _qdata(ht, S, *, inject=True):
     """3D q-data of the port at state S, with inverted and NaN points."""
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     x_e, v_e = ht._gather_e(St["x"]), ht._gather_e(St["v"])
     t = ht.tables
     J9 = tqup._grad9(x_e, t["H1B"], t["H1G"], ht.nd1, ht.NQ)
@@ -218,7 +218,7 @@ def test_eig3s_hybrid_degenerate_spectra():
 # --------------------------------------------------------- q-update -----
 def test_qupdate3d_matches_jax():
     ht, hj, S = _pair(3)
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     s_t, dt_t = ht._qupdate(St)
     s_j, dt_j = jax.jit(hj._qupdate)({k: jnp.asarray(v)
                                       for k, v in S.items()})
@@ -229,7 +229,7 @@ def test_qupdate3d_matches_jax():
 @pytest.mark.parametrize("problem", [1, 7])
 def test_qupdate_2d_matches_jax(problem):
     ht, hj, S = _pair(2, problem)
-    St = state_from_numpy(S)
+    St = state_from_numpy(S, device="cpu")
     s_t, dt_t = ht._qupdate(St)
     s_j, dt_j = jax.jit(hj._qupdate)({k: jnp.asarray(v)
                                       for k, v in S.items()})
@@ -241,7 +241,7 @@ def test_qupdate_2d_matches_jax(problem):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_force_pair_parity_and_adjointness(dim):
     ht, hj, S = _pair(dim)
-    sJit, _ = ht._qupdate(state_from_numpy(S))
+    sJit, _ = ht._qupdate(state_from_numpy(S, device="cpu"))
     rng = np.random.default_rng(11)
     e = rng.normal(size=(ht.NE, ht.ld))
     v_e = rng.normal(size=(ht.NE, dim, ht.nd1**dim))

@@ -60,7 +60,7 @@ def _perturbed(h, seed=1):
     return state_from_numpy({
         "x": S0["x"] + 0.005 * rng.normal(size=S0["x"].shape),
         "v": np.where(h.ess_mask, 0.0, 0.1 * rng.normal(size=S0["v"].shape)),
-        "e": S0["e"] + 0.5})
+        "e": S0["e"] + 0.5}, device="cpu")
 
 
 # ------------------------------------------------------ static splits -----

@@ -132,7 +132,8 @@ def test_fallback_to_gather_path_off_raster(dim):
     assert hj._sm is None and hj._lat is None
     np.testing.assert_array_equal(ht.h1.gather, hj.h1.gather)
     S = {k: np.asarray(v) for k, v in hj.S0.items()}
-    St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
+    St = state_from_numpy(S, device="cpu")
+    Sj = {k: jnp.asarray(v) for k, v in S.items()}
     dt_t, sj_t = ht.dt_estimate_full(St)
     dt_j, sj_j = hj.dt_estimate_full(Sj)
     dt = 0.5 * float(dt_j)
@@ -161,7 +162,8 @@ def test_structured_without_lattice_matches_jax(dim):
          "v": np.where(ht.ess_mask, 0.0, 0.1 * rng.normal(
              size=S0["v"].shape)),
          "e": S0["e"] + 0.5}
-    St, Sj = state_from_numpy(S), {k: jnp.asarray(v) for k, v in S.items()}
+    St = state_from_numpy(S, device="cpu")
+    Sj = {k: jnp.asarray(v) for k, v in S.items()}
     s_t, d_t = ht._qupdate(St)
     s_j, d_j = jax.jit(hj._qupdate)(Sj)
     s_j = np.stack(s_j) if dim == 3 else np.asarray(s_j)
