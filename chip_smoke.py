@@ -112,13 +112,27 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    AMR_E_TOL, with step_ms split and the collectives a step; (d) the
    CLI's -amr -nd 2 on phase 15 (d)'s arguments, its step lines equal in
    step, t, dt and NE.  No hand-written kernel launches on any rank; the
-   gloo cells' times say nothing about scaling.
+   gloo cells' times say nothing about scaling;
+18. high order, Q8-Q7 (the JAX package's `q8` row): 3D Sedov at rs3 (NE
+   4,096, 16,777,216 q-points, 6,440,067 H1 dofs) through the CLI on the
+   lattice path in f64 and in the JAX row's f32 form (|e| within
+   Q8_F32_E_TOL of f64), 3D Taylor-Green at rs3, each with setup seconds,
+   step_ms and its phase split, L2 iterations a solve and peak memory;
+   the lattice- and element-layout kernels at those shapes against their
+   plain twins; at rs2 Taylor-Green on the lattice path twice (bitwise)
+   against the gather path (|e| at 1e-11, drift <= 1e-12) and Sedov with
+   kron against the gather path (|e| within Q8_SEDOV_E_TOL); at rs0 the
+   card against the CPU (Taylor-Green at 1e-11, Sedov at Q8_SEDOV_E_TOL:
+   its L2 CG stops at its cap, far from convergence).
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
-card's peak for their type; `cold_ms` is its time with a cold L2, the one
-its share of the bound is read against; `library_ms` is null, as no single
-PyTorch call computes any of these functions.
+card's peak for their type (for the q-point kernel, the longer of the
+algorithm's operations and the FP64-pipe instructions counted in the built
+library, at half the FP64 peak); `cold_ms` is its time with a cold L2, the
+one its share of the bound is read against; `library_ms` is null, as no
+single PyTorch call computes any of these functions. The q-point kernel's
+entries carry the same numbers at phase 18's Q8-Q7 shapes under "q8".
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -195,7 +209,20 @@ QPHYS_OPS_PER_POINT = 1000
 # sequences and their slow paths included, as phase 2 counts them in the
 # built library (`kernels.sass_instructions`; H100 80GB HBM3, 700 W)
 QPHYS_SASS_PER_POINT = {F64: 4038, F32: 3566}
-# layout -> (wrapper in ops/qphys, {dtype: the TPU kernel it replaces})
+# the opcodes of the FP64 pipe: each takes one of its issue slots, at half
+# the FP64 peak a second (an FMA counts two operations in the peak); the
+# chain's FP64 instructions (static, one pass through every loop and slow
+# path) bound it beside its bytes
+FP64_OPCODES = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+# {(layout, dtype): FP64-pipe instructions a point of its viscous
+# instance}, filled by phase 2 from the built library
+FP64_PER_POINT = {}
+# an estimate logged beside the bound, not a bound: every SASS instruction
+# of the chain at one issue a clock for each of an SM's 4 schedulers (32
+# threads each), on the data sheet's 132 SMs at their 1.98 GHz boost clock
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
+# layout -> (wrapper in ops/qphys, {dtype: the TPU kernel it replaces}), in
+# the order of csrc/qphys.cu's Layout enum
 LAYOUTS = {
     "element": ("physics_3d", {F64: "laghos_tpu/ops/pallas_df64.py:132",
                                F32: "laghos_tpu/ops/pallas_qphys.py:211"}),
@@ -256,16 +283,26 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[2 build] ptxas: {line.strip()}")
     sass = kernels.sass_instructions(b.path)
+    fp64 = kernels.sass_instructions(b.path, FP64_OPCODES)
     for code, dt in (("d", F64), ("f", F32)):
-        n = [v for k, v in sass.items()
-             if f"qphys_kernelI{code}Li1ELb1ELb0E" in k]
-        if len(n) != 1:
-            raise AssertionError(f"no q-lattice viscous {dt} instance in "
-                                 f"the SASS of {b.path.name}")
-        log(f"[2 build] q-lattice viscous {str(dt)[6:]} instance: {n[0]} "
+        for lay, layout in enumerate(LAYOUTS):
+            # the viscous, vorticity-free qphys_kernel<T, layout, true, false>
+            name = f"qphys_kernelI{code}Li{lay}ELb1ELb0E"
+            n = [k for k in sass if name in k]
+            if len(n) != 1:
+                raise AssertionError(f"no {layout} viscous {dt} instance in "
+                                     f"the SASS of {b.path.name}")
+            FP64_PER_POINT[layout, dt] = fp64[n[0]]
+            if layout == "lattice":
+                total = sass[n[0]]
+        log(f"[2 build] q-lattice viscous {str(dt)[6:]} instance: {total} "
             f"SASS instructions a point (QPHYS_SASS_PER_POINT "
             f"{QPHYS_SASS_PER_POINT[dt]}) against {QPHYS_OPS_PER_POINT} "
-            "operations of the algorithm")
+            "operations of the algorithm; FP64-pipe instructions a point: "
+            + ", ".join(f"{lay} {FP64_PER_POINT[lay, dt]}"
+                        for lay in LAYOUTS))
+    if not FP64_PER_POINT["lattice", F64]:
+        raise AssertionError("no FP64 instructions in the f64 instance")
 
 
 # ------------------------------------------------------- launch counts --
@@ -291,11 +328,12 @@ def read_counts():
     return out
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, dtype, fp64=0):
     """(bound_ms, bound_by): the larger of the byte time at HBM bandwidth
-    and the operation time at the card's peak for `dtype`."""
+    and the operation time, the longer of `ops` at the card's peak for
+    `dtype` and `fp64` FP64-pipe instructions at half the FP64 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = max(ops / PEAK_FLOPS[dtype], fp64 / (PEAK_FLOPS[F64] / 2)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -304,12 +342,14 @@ def _nbytes(ts):
 
 
 # ------------------------------------------------------------ phase 3 --
-def flagship_hydro(device, dtype=F64, **opt):
+def flagship_hydro(device, dtype=F64, rs=4, **opt):
+    """3D Sedov (RK2Avg, -cgt 1e-11 unless `opt` says otherwise) on
+    cube01_hex refined `rs` times: the flagship at rs 4."""
     from laghos_tpu_torch.fem import mesh as fmesh
     from laghos_tpu_torch.hydro import Hydro, Options
 
     m = fmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
-    for _ in range(4):
+    for _ in range(rs):
         m = fmesh.uniform_refine(m)
     opt = {"problem": 1, "ode_solver": 7, "cg_tol": 1e-11, **opt}
     return Hydro(m, Options(**opt), dtype=dtype, device=device)
@@ -377,22 +417,28 @@ def lattice_inputs(h, seed=0):
     return args, dict(h0=h.h0)
 
 
-def packed_inputs(h, lattice_args):
-    """The same q-data in the packed layout: (NE, NQ, 3, 3) per field."""
+def eq_inputs(h, lattice_args, layout):
+    """The q-lattice q-data `lattice_args` of the lattice-path `h` per zone
+    (raster element order) in `layout`: "element", (9, NE, NQ) a field, or
+    "packed", (NE, NQ, 3, 3) a field."""
     from laghos_tpu_torch.ops import lattice as lop
 
     J9, dV9, J0i9, e_q, rw = lattice_args[:5]
+    element = layout == "element"
 
     def eq(a):
         return lop.qlattice_to_eq(a, h._edims, h.nq1)
 
-    def packed(A9):
+    def field(A9):
+        if element:
+            return torch.stack([eq(a) for a in A9]).contiguous()
         return torch.stack([eq(a) for a in A9], dim=-1).reshape(
             h.NE, h.NQ, 3, 3).contiguous()
 
-    args = [packed(J9), packed(dV9), packed(J0i9), eq(e_q).contiguous(),
-            eq(rw).contiguous(), h.gamma_t, h.tables["W"]]
-    return args, dict(h0=h.h0)
+    args = [field(J9), field(dV9), field(J0i9), eq(e_q).contiguous(),
+            eq(rw).contiguous(), h.gamma_t,
+            h.tables["Winv" if element else "W"]]
+    return args, (dict(h0_e=h.h0) if element else dict(h0=h.h0))
 
 
 def _max_err(k, p, what, dtype):
@@ -403,7 +449,7 @@ def _max_err(k, p, what, dtype):
     return float((k[fin] - p[fin]).abs().max()), float(p[fin].abs().max())
 
 
-def compare(layout, inputs, dtype):
+def compare(layout, inputs, dtype, tag="3 kernel", h1order=2.0):
     """Kernel against plain version on the card for one layout and dtype;
     returns the kernels-line numbers."""
     from laghos_tpu_torch.ops import qphys
@@ -413,7 +459,7 @@ def compare(layout, inputs, dtype):
     plain = getattr(qphys, LAYOUTS[layout][0] + "_plain")
     base, extra = inputs
     args = [a.to(dtype) for a in base]
-    kw = dict(extra, h1order=2.0, cfl=0.5, use_viscosity=True,
+    kw = dict(extra, h1order=h1order, cfl=0.5, use_viscosity=True,
               use_vorticity=False)
     out_k, out_p = wrapper(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
@@ -428,7 +474,7 @@ def compare(layout, inputs, dtype):
     drel = abs(dmin_k - dmin_p) / dmin_p
     tol = TOL[dtype]
     name = f"{layout} {str(dtype)[6:]}"
-    msg = (f"[3 kernel] {name}: max|dsJit| {err:.3e} = {err / scale:.3e} x "
+    msg = (f"[{tag}] {name}: max|dsJit| {err:.3e} = {err / scale:.3e} x "
            f"max|sJit| (tol {tol:g}); dtq.min rel diff {drel:.3e}; "
            f"zero-dt points {int(zp.sum())}")
     ok = err <= tol * scale and drel <= tol
@@ -447,14 +493,21 @@ def compare(layout, inputs, dtype):
     ms = device_ms(lambda: wrapper(*args, **kw))
     cold_ms = device_ms(lambda: wrapper(*args, **kw), cold=True)
     plain_ms = device_ms(lambda: plain(*args, **kw))
-    b_ms, b_by = bound(_nbytes(args) + _nbytes(out_k),
-                       QPHYS_OPS_PER_POINT * args[3].numel(), dtype)
-    log(f"[3 kernel] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold "
-        f"L2, plain {plain_ms:.4f} ms (median of 20, N = "
-        f"{args[3].numel()}); bound {b_ms:.4f} ms ({b_by}; "
-        f"{QPHYS_OPS_PER_POINT} operations a point, the card runs "
-        f"~{QPHYS_SASS_PER_POINT[dtype]} SASS instructions a point), "
-        f"{100 * b_ms / cold_ms:.1f} % of it cold")
+    N = args[3].numel()
+    nbytes = _nbytes(args) + _nbytes(out_k)
+    fp64 = FP64_PER_POINT[layout, dtype]
+    b_ms, b_by = bound(nbytes, QPHYS_OPS_PER_POINT * N, dtype, fp64 * N)
+    sass_ms = QPHYS_SASS_PER_POINT[dtype] * N / ISSUE_PER_S * 1e3
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold "
+        f"L2, plain {plain_ms:.4f} ms (median of 20, N = {N}); bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / cold_ms:.1f} % of it cold: "
+        f"bytes {bound(nbytes, 0, dtype)[0]:.4f} ms, "
+        f"{QPHYS_OPS_PER_POINT} operations a point "
+        f"{bound(0, QPHYS_OPS_PER_POINT * N, dtype)[0]:.4f} ms, FP64 pipe "
+        f"{bound(0, 0, dtype, fp64 * N)[0]:.4f} ms ({fp64} a point); "
+        f"estimate, not a bound: ~{QPHYS_SASS_PER_POINT[dtype]} SASS "
+        f"instructions a point at 4 issues a clock an SM {sass_ms:.4f} ms "
+        f"({100 * sass_ms / cold_ms:.1f} % of the cold time)")
     return dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -578,7 +631,7 @@ def phase_kernel(dev):
     if h._lat is None or h._lat_oz is None:
         raise AssertionError("the flagship mesh did not build the lattice")
     lat = lattice_inputs(h)
-    pk = packed_inputs(h, lat[0])
+    pk = eq_inputs(h, lat[0], "packed")
     for dt in (F64, F32):
         out["lattice", dt] = compare("lattice", lat, dt)
     del lat
@@ -678,7 +731,10 @@ def _ir_line(h):
             f"component solve)")
 
 
-def flagship_run(argv, tag):
+def flagship_run(argv, tag, phase="5", drift_max=1e-12):
+    """One -f drive of the CLI on the lattice path; logs its figures and
+    gates it on finite state, the kernel launches and (unless `drift_max`
+    is None) the RK2Avg energy drift."""
     run, counts, wall, out = drive(argv)
     res, h, fom = run.result, run.hydro, run.fom
     ozaki = h.oz is not None
@@ -687,7 +743,7 @@ def flagship_run(argv, tag):
     step_ms = 1e3 * res.timings["total"] / res.steps
     drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
     peak = torch.cuda.max_memory_allocated()
-    p = f"[5 {tag}]"
+    p = f"[{phase} {tag}]"
     for line in out.splitlines():
         if line.startswith("|") or "step" in line or "Energy" in line:
             log(f"{p} {line}")
@@ -715,9 +771,9 @@ def flagship_run(argv, tag):
     finite = all(bool(torch.isfinite(S[k]).all()) for k in S)
     if not finite or not math.isfinite(res.e_norm):
         raise AssertionError(f"{tag}: state is not finite")
-    if not drift <= 1e-12:
+    if drift_max is not None and not drift <= drift_max:
         raise AssertionError(f"{tag}: RK2Avg energy drift {drift:.3e} > "
-                             "1e-12")
+                             f"{drift_max:g}")
     _only(counts, "lattice", h.qupdate_calls, tag, ozaki)
     log(f"{p} lattice kernel launches {counts['lattice']} == q-updates "
         f"{h.qupdate_calls}")
@@ -734,8 +790,8 @@ def packed_check(h, S, tag):
     from laghos_tpu_torch.ops import qphys
 
     sJ_lat, dt_lat = h._qupdate(S)
-    args, extra = packed_inputs(h, _qlattice_args(h, S["x"], S["v"],
-                                                  S["e"]))
+    args, extra = eq_inputs(h, _qlattice_args(h, S["x"], S["v"], S["e"]),
+                            "packed")
     sJ, dtq, visc = qphys.physics_3d_packed(
         *args, **extra, h1order=float(h.opt.order_v), cfl=h.opt.cfl,
         use_viscosity=h.use_visc, use_vorticity=h.use_vort)
@@ -1772,17 +1828,10 @@ def _states_equal(comm, A, B):
 
 
 def _rs3_hydro(dtype=F64, **opt):
-    """3D Sedov at DIST_RS refinements (RK2Avg, Jacobi, -cgt 1e-11 unless
-    `opt` says otherwise), built on the host for the rank views."""
-    from laghos_tpu_torch.fem import mesh as fmesh
-    from laghos_tpu_torch.hydro import Hydro, Options
-
-    m = fmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
-    for _ in range(DIST_RS):
-        m = fmesh.uniform_refine(m)
-    opt = {"problem": 1, "ode_solver": 7, "cg_tol": 1e-11,
-           "precond": "jacobi", **opt}
-    return Hydro(m, Options(**opt), dtype=dtype, device="cpu")
+    """3D Sedov at DIST_RS refinements (Jacobi unless `opt` says
+    otherwise), built on the host for the rank views."""
+    return flagship_hydro("cpu", dtype, rs=DIST_RS,
+                          **{"precond": "jacobi", **opt})
 
 
 def dist_ranks_flagship(comm):
@@ -2286,39 +2335,291 @@ def phase_amr_distributed(dev, refs):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ phase 18 --
+# Q8-Q7, the JAX package's production-size row (`q8`, bench.py:291; BASELINE
+# configs[2]): 3D on cube01_hex, rule order 3*8 + 7 - 1 = 30, so 16 Gauss
+# points an axis and NQ 4,096 a zone; RK2Avg, Jacobi.  At rs3: NE 4,096,
+# 16,777,216 q-points, 6,440,067 H1 and 2,097,152 L2 dofs, lattices 129^3
+# and 256^3.
+Q8_STEPS = 2               # -ms 2: three step attempts
+Q8_COMMON = ["-dim", "3", "-ok", "8", "-ot", "7", "-s", "7", "-vs", "1",
+             "-ms", str(Q8_STEPS), "--precond", "jacobi", "-f", "-d", "cuda"]
+Q8_SEDOV = ["-p", "1", "-rs", "3", "-cgt", "1e-11"] + Q8_COMMON
+# the JAX row's own form: f32, Jacobi, the f32 CG tolerance
+Q8_SEDOV_F32 = ["-p", "1", "-rs", "3", "-cgt", "2e-7", "--dtype",
+                "f32"] + Q8_COMMON
+Q8_TG = ["-p", "0", "-rs", "3", "-cgt", "1e-11"] + Q8_COMMON
+Q8_OPT = dict(order_v=8, order_e=7, ode_solver=7, cg_tol=1e-11,
+              precond="jacobi")
+Q8_SIZES = dict(NE=4096, NQ=4096, h1=6440067, l2=2097152,
+                lattice=(129, 129, 129))
+# Sedov at Q8-Q7: the L2 (energy) CG stops at its 300-iteration cap far from
+# convergence (the degree-7 Bernstein element mass has condition ~2.7e11 in
+# 3D), so round-off in its right-hand side moves its solution, and |e| with
+# it: tests/test_torch_high_order.py's bound for the JAX package against
+# the port (4.8e-5 measured there), used here for the card against the CPU
+Q8_SEDOV_E_TOL = 1e-4
+# the JAX row's f32 form (-cgt 2e-7) against the f64 run (-cgt 1e-11): the
+# capped L2 CG carries f32 round-off into |e| as it does a package's; the
+# JAX package's own two forms are 3.2e-2 apart at step 2 at rs0, the port's
+# 3.2e-2 at rs0 and rs1 (PERF.md, PR 10); the measured gap rounded up to its
+# decade
+Q8_F32_E_TOL = 1e-1
+
+
+def q8_run(h, tag, layout=None):
+    """Q8_STEPS + 1 step attempts of `h` through driver.run, |e| at every
+    step; on the card the launches are counted and must be one `layout`
+    kernel a q-update."""
+    from laghos_tpu_torch import driver
+
+    card = h.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    calls = h.qupdate_calls
+    reset_counts()
+    t0 = time.perf_counter()
+    res = driver.run(h, t_final=0.6, max_steps=Q8_STEPS, vis_steps=1)
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if not (all(bool(torch.isfinite(res.S[k]).all()) for k in res.S)
+            and math.isfinite(res.e_norm) and res.steps > 0):
+        raise AssertionError(f"{tag}: {res.steps} steps, |e| {res.e_norm}")
+    if card:
+        _only(counts, layout, h.qupdate_calls - calls, tag)
+    drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
+    log(f"[18 high order] {tag}: NE {h.NE}, {res.steps} steps in "
+        f"{wall:.3f} s, |e| by step {dict(res.norms)}, drift {drift:.3e}, "
+        f"CG H1 {res.h1_iters} ({res.h1_iters / (6 * res.steps):.2f} per "
+        f"component solve), L2 {res.l2_iters} "
+        f"({res.l2_iters / (2 * res.steps):.2f} per solve)"
+        + (f", peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+           f"launches {counts}" if card else ""))
+    return res, counts, drift
+
+
+def _e_rel(a, b, tag, tol):
+    """max relative |e| difference over the steps of two runs, which must
+    have the same steps; raises above `tol`."""
+    if sorted(a.norms) != sorted(b.norms) or a.steps != b.steps:
+        raise AssertionError(f"{tag}: steps {sorted(a.norms)} against "
+                             f"{sorted(b.norms)}")
+    rel = max(abs(a.norms[k] - b.norms[k]) / abs(b.norms[k])
+              for k in a.norms)
+    log(f"[18 high order] {tag}: max rel |e| over steps "
+        f"{sorted(a.norms)}: {rel:.3e} (limit "
+        f"{tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"{tag}: |e| apart by {rel:.3e} > {tol:g}")
+    return rel
+
+
+def phase_high_order(dev):
+    """Q8-Q7 on the card: (a) 3D Sedov at rs3 (NE 4,096, 16.8M q-points)
+    through the CLI on the lattice path with Jacobi in f64, with peak
+    memory, setup seconds, step_ms and its phase split and the L2
+    iterations a solve; (b) the lattice- and element-layout kernels,
+    f64 and f32, at its q8 shapes against their plain twins (the
+    element data are its q-lattice data per zone: NE 4,096 x NQ 4,096);
+    (c) the JAX row's own form (f32, -cgt 2e-7) at rs3, |e| within
+    Q8_F32_E_TOL of (a)'s at every step; (d) 3D Taylor-Green at rs3,
+    drift <= 1e-12; at rs2 (NE 512, NQ 4,096 as at rs3): (e)
+    Taylor-Green on the lattice path twice, bitwise, and on the gather
+    path, |e| at every step within 1e-11 of the lattice run's, drift <=
+    1e-12 in both; (f) Sedov on the lattice path with kron (at most 3
+    H1 iterations a component solve: exact on the affine mesh) and on
+    the gather path, |e| within Q8_SEDOV_E_TOL of each other; (g) at
+    rs0 (NE 8), the card against this machine's CPU: Taylor-Green |e|
+    at every step within 1e-11, Sedov within Q8_SEDOV_E_TOL. Returns
+    (launches, kernel numbers at q8)."""
+    p = "[18 high order]"
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    def q8(device, rs, problem, **opt):
+        """(Hydro at Q8-Q7 on cube01_hex refined `rs` times, setup s)."""
+        t0 = time.perf_counter()
+        h = flagship_hydro(device, rs=rs,
+                           **{**Q8_OPT, "problem": problem, **opt})
+        return h, time.perf_counter() - t0
+
+    # (a) Sedov rs3, lattice, Jacobi, f64
+    run, counts = flagship_run(Q8_SEDOV, "q8 sedov", phase="18",
+                               drift_max=None)
+    add(("lattice", F64), counts["lattice"])
+    h, res_a = run.hydro, run.result
+    sizes = dict(NE=h.NE, NQ=h.NQ, h1=3 * h.ndof, l2=h.NE * h.ld,
+                 lattice=h._lat_dims)
+    if sizes != Q8_SIZES:
+        raise AssertionError(f"q8 sedov: sizes {sizes}")
+    log(f"{p} (a) q8 sedov: L2 CG at its cap "
+        f"({h.opt.cg_max_iter}) in {res_a.l2_iters} of "
+        f"{h.opt.cg_max_iter * 2 * res_a.steps} iterations")
+
+    # (b) the kernels at q8 shapes, against their plain twins
+    timed = {}
+    torch.cuda.reset_peak_memory_stats()
+    lat = lattice_inputs(h, seed=18)
+    for dt in (F64, F32):
+        timed["lattice", dt] = compare("lattice", lat, dt,
+                                       tag="18 kernel q8", h1order=8.0)
+    el = eq_inputs(h, lat[0], "element")
+    del lat
+    for dt in (F64, F32):
+        timed["element", dt] = compare("element", el, dt,
+                                       tag="18 kernel q8", h1order=8.0)
+    del el, run, h
+    torch.cuda.empty_cache()
+    log(f"{p} (b) peak device memory of the kernel checks (inputs, kernel "
+        f"and plain twin at 16,777,216 points): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # (c) the JAX row's form: f32, -cgt 2e-7
+    run, counts = flagship_run(Q8_SEDOV_F32, "q8 sedov f32", phase="18",
+                               drift_max=None)
+    add(("lattice", F32), counts["lattice"])
+    _e_rel(run.result, res_a, "(c) sedov f32 -cgt 2e-7 vs f64 -cgt 1e-11",
+           Q8_F32_E_TOL)
+    del run
+    torch.cuda.empty_cache()
+
+    # (d) Taylor-Green rs3
+    run, counts = flagship_run(Q8_TG, "q8 taylor-green", phase="18")
+    add(("lattice", F64), counts["lattice"])
+    del run
+    torch.cuda.empty_cache()
+
+    # (e) Taylor-Green rs2: lattice twice, gather
+    hl, s_l = q8(dev, 2, 0)
+    tg_l, c, d_l = q8_run(hl, "(e) taylor-green rs2 lattice", "lattice")
+    add(("lattice", F64), c["lattice"])
+    tg_l2, c, _ = q8_run(hl, "(e) taylor-green rs2 lattice again",
+                         "lattice")
+    add(("lattice", F64), c["lattice"])
+    same = all(torch.equal(tg_l.S[k], tg_l2.S[k]) for k in tg_l.S)
+    log(f"{p} (e) lattice run repeated on its Hydro (setup {s_l:.3f} s): "
+        f"final state bitwise equal {same}")
+    if not same:
+        raise AssertionError("18 (e): two q8 lattice runs differ")
+    del hl, tg_l2
+    hg, s_g = q8(dev, 2, 0, **GATHER)
+    if hg._lat is not None:
+        raise AssertionError("18 (e): the gather run built the lattice")
+    tg_g, c, d_g = q8_run(hg, "(e) taylor-green rs2 gather", "element")
+    add(("element", F64), c["element"])
+    log(f"{p} (e) gather setup {s_g:.3f} s")
+    del hg
+    _e_rel(tg_g, tg_l, "(e) taylor-green rs2 gather vs lattice", 1e-11)
+    if not (d_l <= 1e-12 and d_g <= 1e-12):
+        raise AssertionError(f"18 (e): drift {d_l:.3e}, {d_g:.3e} > 1e-12")
+    torch.cuda.empty_cache()
+
+    # (f) Sedov rs2: lattice with kron, gather with Jacobi
+    hk, s_k = q8(dev, 2, 1, precond="kron")
+    if "kron" not in hk._lat:
+        raise AssertionError("18 (f): no kron factors")
+    sk, c, _ = q8_run(hk, "(f) sedov rs2 lattice kron", "lattice")
+    add(("lattice", F64), c["lattice"])
+    if not sk.h1_iters <= 3 * 6 * (Q8_STEPS + 1):
+        raise AssertionError(f"18 (f): kron took {sk.h1_iters} H1 "
+                             "iterations")
+    del hk
+    hg, s_g = q8(dev, 2, 1, **GATHER)
+    sg, c, _ = q8_run(hg, "(f) sedov rs2 gather", "element")
+    add(("element", F64), c["element"])
+    del hg
+    log(f"{p} (f) setup kron {s_k:.3f} s, gather {s_g:.3f} s")
+    _e_rel(sg, sk, "(f) sedov rs2 gather (Jacobi) vs lattice (kron)",
+           Q8_SEDOV_E_TOL)
+    torch.cuda.empty_cache()
+
+    # (g) rs0: the card against this machine's CPU
+    for problem, name, tol in ((0, "taylor-green", 1e-11),
+                               (1, "sedov", Q8_SEDOV_E_TOL)):
+        hc, _ = q8(dev, 0, problem)
+        rc, c, _ = q8_run(hc, f"(g) {name} rs0 card", "lattice")
+        add(("lattice", F64), c["lattice"])
+        hh, _ = q8("cpu", 0, problem)
+        rh, _, _ = q8_run(hh, f"(g) {name} rs0 cpu")
+        _e_rel(rc, rh, f"(g) {name} rs0 card vs cpu", tol)
+        del hc, hh
+    named = {f"{k[0]} {str(k[1])[6:]}": n for k, n in launches.items()}
+    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, timed
+
+
 def main():
     t0 = time.perf_counter()
+    marks = [("", t0)]
+
+    def mark(name):
+        """The wall seconds of the phases since the last mark, for the
+        budget of the script (PERF.md §4)."""
+        marks.append((name, time.perf_counter()))
+
     dev = phase_device()
     phase_build()
+    mark("1-2 device, build")
     timed = phase_kernel(dev)
+    mark("3 kernel")
     phase_goldens(dev)
+    mark("4 goldens")
     launches = phase_flagship(dev)
+    mark("5 flagship")
     phase_golden_rows()
+    mark("7 golden rows")
     fa_res, n_fa = phase_fa(dev)
     launches[("element", F64)] += n_fa
+    mark("8 fa")
     n_ckpt, ckpt_ref = phase_checkpoint()
+    mark("9 checkpoint")
     launches[("lattice", F64)] += n_ckpt + phase_io()
+    mark("10 io")
     launches[("element", F64)] += phase_repeat(dev, fa_res)
+    mark("6 repeat")
     ref, ref_setup, more, refs = phase_device_loop(dev)
     for key, n in more.items():
         launches[key] = launches.get(key, 0) + n
+    mark("11 device loop")
     launches[("lattice", F64)] += phase_solver_options(dev, ref, ref_setup)
+    mark("12 solver options")
     n_sweep, digests = phase_sweep(dev)
     launches[("lattice", F64)] += n_sweep
+    mark("13 sweep")
     phase_simplex(dev)
+    mark("14 simplex")
     amr_refs = phase_amr(dev)
+    mark("15 amr")
     for key, n in phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
                                     ckpt_ref, digests).items():
         launches[key] = launches.get(key, 0) + n
+    mark("16 distributed")
     # the AMR path launches no hand-written kernel (phase 17 raises if one
     # does): its launches add 0 to every entry
     phase_amr_distributed(dev, amr_refs)
+    mark("17 amr ranks")
+    more, timed_q8 = phase_high_order(dev)
+    for key, n in more.items():
+        launches[key] = launches.get(key, 0) + n
+    mark("18 high order")
+    log("phase seconds: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
+        enumerate(marks[1:])))
     # launches come from the main-path runs only; the packed layout is on
-    # none of them
+    # none of them.  The timed numbers are at the flagship's shapes; "q8"
+    # holds them at phase 18's (16,777,216 points)
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",
                     source=SOURCE, replaces=LAYOUTS[layout][1][dt],
                     launches=launches.get((layout, dt), 0),
-                    on_path=layout != "packed", **timed[layout, dt])
+                    on_path=layout != "packed", **timed[layout, dt],
+                    **({"q8": timed_q8[layout, dt]}
+                       if (layout, dt) in timed_q8 else {}))
                for layout in LAYOUTS for dt in (F64, F32)]
     kernels.append(dict(name="split_f64", route="cuda", source=SPLIT_SOURCE,
                         replaces=SPLIT_REPLACES,

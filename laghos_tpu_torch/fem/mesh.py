@@ -68,10 +68,18 @@ def unify_rows(keys: np.ndarray):
     of each unique id.
     """
     keys = np.ascontiguousarray(keys, dtype=np.int64)
-    uniq, first, inverse = np.unique(keys, axis=0, return_index=True,
-                                     return_inverse=True)
-    return (uniq.shape[0], inverse.reshape(-1).astype(np.int32),
-            first.astype(np.int64))
+    if keys.shape[0] == 0:
+        return 0, np.zeros(0, np.int32), np.zeros(0, np.int64)
+    # a stable sort on the columns, the first the primary key: the row
+    # order and first occurrences of np.unique(axis=0), without its
+    # comparisons of whole rows as records (seconds at millions of rows)
+    order = np.lexsort(keys.T[::-1])
+    srt = keys[order]
+    new = np.ones(keys.shape[0], dtype=bool)
+    new[1:] = (srt[1:] != srt[:-1]).any(axis=1)
+    inverse = np.empty(keys.shape[0], dtype=np.int32)
+    inverse[order] = np.cumsum(new) - 1
+    return int(new.sum()), inverse, order[new].astype(np.int64)
 
 
 def cartesian(dim: int, n: tuple, sizes: tuple) -> Mesh:

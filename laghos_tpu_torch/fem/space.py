@@ -48,7 +48,8 @@ class H1Space:
         Boundary attribute d+1 fixes component d (laghos.cpp:499-515).
         """
         attr = component + 1
-        return np.array([attr in a for a in self.dof_attrs], dtype=bool)
+        return np.fromiter((attr in a for a in self.dof_attrs), dtype=bool,
+                           count=self.ndof)
 
 
 def build_h1_space(mesh: Mesh, p: int) -> H1Space:
@@ -103,7 +104,9 @@ def build_h1_space(mesh: Mesh, p: int) -> H1Space:
     node_coords = flat_p[first]
 
     # Boundary attributes per dof: a dof lies on a boundary face iff its
-    # vertex support is a subset of the face's vertex set.
+    # vertex support is a subset of the face's vertex set.  Only dofs whose
+    # support vertices are all boundary vertices can, so only those are
+    # tested (the interior of a high-order space is most of its dofs).
     vert_faces: dict[int, list[int]] = {}
     face_sets = []
     for b in range(mesh.bdr_verts.shape[0]):
@@ -113,7 +116,10 @@ def build_h1_space(mesh: Mesh, p: int) -> H1Space:
             vert_faces.setdefault(v, []).append(b)
     dof_attrs: list[set] = [set() for _ in range(ndof)]
     supp_v = uniq[:, :ncor]
-    for g in range(ndof):
+    bdr_vert = np.zeros(mesh.verts.shape[0] + 1, dtype=bool)
+    bdr_vert[np.asarray(mesh.bdr_verts, dtype=np.int64).reshape(-1)] = True
+    bdr_vert[-1] = True                          # the -1 padding
+    for g in np.flatnonzero(bdr_vert[supp_v].all(axis=1)).tolist():
         verts_g = [int(v) for v in supp_v[g] if v >= 0]
         cand = vert_faces.get(verts_g[0], [])
         for b in cand:

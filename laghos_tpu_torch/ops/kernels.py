@@ -107,12 +107,20 @@ def build() -> Build:
     return Build(so, out, seconds)
 
 
-def sass_instructions(path) -> dict:
+def sass_instructions(path, opcodes=None) -> dict:
     """{mangled kernel name: static SASS instructions, NOPs left out} of the
-    library at `path`, read with `cuobjdump -sass` from nvcc's toolkit."""
+    library at `path`, read with `cuobjdump -sass` from nvcc's toolkit;
+    with `opcodes` (a set of opcode names such as {"DFMA", "DMUL"}) only
+    the instructions whose opcode, up to its first ".", is one of them."""
     cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
     text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+    return count_sass(text, opcodes)
+
+
+def count_sass(text, opcodes=None) -> dict:
+    """The counts of `sass_instructions` from the text of `cuobjdump
+    -sass`."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -122,7 +130,8 @@ def sass_instructions(path) -> dict:
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                      line)
-        if m and cur is not None and not m.group(1).startswith("NOP"):
+        if m and cur is not None and not m.group(1).startswith("NOP") and (
+                opcodes is None or m.group(1).split(".")[0] in opcodes):
             out[cur] += 1
     return out
 

@@ -50,10 +50,8 @@ def renumber_space_to_raster(space, sm: StructMaps) -> StructMaps:
     nc = np.empty_like(space.node_coords)
     nc[inv] = space.node_coords
     space.node_coords = nc
-    da = [None] * space.ndof
-    for old, new in enumerate(inv):
-        da[new] = space.dof_attrs[old]
-    space.dof_attrs = da
+    old_attrs = space.dof_attrs
+    space.dof_attrs = [old_attrs[old] for old in sm.perm.tolist()]
     ident = np.arange(space.ndof, dtype=np.int32)
     return StructMaps(dims=sm.dims, p=sm.p, perm=ident, inv=ident,
                       e_mesh_at_raster=sm.e_mesh_at_raster,

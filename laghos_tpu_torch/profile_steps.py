@@ -4,10 +4,10 @@
         [--repeats 2] [--out FILE]
 
 For each case (3D Sedov, RK2Avg, f64, `-cgt 1e-11`, at the flagship sizes
-of `chip_smoke.py`), builds the `Hydro`, takes 2 warm-up steps, times 5
-steps (`step_ms`, host wall time ending in a device sync), then runs
-`--repeats` windows of 2 steps under `torch.profiler`.  Each window gives
-one JSON line: the device's busy time per step (the union of the traced
+of `chip_smoke.py`, and Q8-Q7 at phase 18's), builds the `Hydro`, takes 2
+warm-up steps, times 5 steps (`step_ms`, host wall time ending in a device
+sync), then runs `--repeats` windows of 2 steps under `torch.profiler`.
+Each window gives one JSON line: the device's busy time per step (the union of the traced
 device intervals), busy share of the window's wall time, device events
 per step, the ops and kernels with the most device time, and the device
 time and launches per step of each hand-written kernel (`csrc/*.cu`,
@@ -34,6 +34,9 @@ CASES = {
     "ns4_lattice_jacobi": (3, 4, 3, dict(precond="jacobi")),
     "ns4_lattice_kron": (3, 4, 3, dict(precond="kron")),
     "ns2_lattice_ozaki": (4, 2, 1, dict(precond="jacobi", ozaki=True)),
+    # Q8-Q7 at rs3 (the JAX package's q8 row in f64): NE 4,096, 16.8M
+    # q-points, 6.44M H1 dofs; `--cases q8_lattice_jacobi` alone
+    "q8_lattice_jacobi": (3, 8, 7, dict(precond="jacobi")),
 }
 
 
