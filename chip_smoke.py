@@ -123,7 +123,28 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    against the gather path (|e| at 1e-11, drift <= 1e-12) and Sedov with
    kron against the gather path (|e| within Q8_SEDOV_E_TOL); at rs0 the
    card against the CPU (Taylor-Green at 1e-11, Sedov at Q8_SEDOV_E_TOL:
-   its L2 CG stops at its cap, far from convergence).
+   its L2 CG stops at its cap, far from convergence);
+19. the Ozaki mode at Q8-Q7: phase 18's Taylor-Green at rs3 through the
+   CLI with --ozaki (every contraction an Ozaki product, the IR velocity
+   solve), against phase 18's native run: the same printed step lines, t
+   and dt at the end within 1e-12, |e| at every step within OZ_E_TOL, the
+   final velocity within OZ_V_TOL, drift <= 1e-12, with setup seconds,
+   step_ms and its phase split, the H1 inner sweeps and outers, the L2
+   iterations a solve, peak memory and the split launches; then the split
+   kernel bit for bit against its plain twin at the q8 shapes: the six
+   stage operands of one Ozaki mass apply (k = 129 and 256, 8 and 6
+   slices), the L2 pair's flat operands (NE, 512) and (NE, 4096) (the
+   chunked branch; 8, 6 and 4 slices) and mixed-magnitude operands of
+   those widths with zero, NaN and Inf rows, timed warm and with a cold
+   L2;
+20. the triple point (-p 3) under RK2Avg, BASELINE configs[3], on a 7 x
+   3 x 3 box whose element faces lie on the material interfaces, written
+   as an MFEM file and read by -m, at rs2 (1,792 zones, Q2-Q1, 51 step
+   attempts): through the CLI on the lattice path (drift <= 1e-12), the
+   gather path (|e| at every step within 1e-11 of the lattice run's,
+   drift <= 1e-12), and the lattice run's command on this machine's CPU,
+   in a child process run beside phase 19 (the same printed step lines,
+   |e| at every step within 1e-11).
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -132,7 +153,8 @@ algorithm's operations and the FP64-pipe instructions counted in the built
 library, at half the FP64 peak); `cold_ms` is its time with a cold L2, the
 one its share of the bound is read against; `library_ms` is null, as no
 single PyTorch call computes any of these functions. The q-point kernel's
-entries carry the same numbers at phase 18's Q8-Q7 shapes under "q8".
+entries carry the same numbers at phase 18's Q8-Q7 shapes under "q8", the
+split kernel's at phase 19's (the six stages of one Ozaki mass apply).
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -143,6 +165,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -546,7 +569,7 @@ def _split_bitwise(A, S, what, axis=1):
     return k
 
 
-def _time_split(A, what):
+def _time_split(A, what, tag="3 split"):
     """Kernel (warm and cold L2) and plain times of the 8-slice split of A
     over axis 1 (axis -1 for a 2D A), with its bound; logged."""
     from laghos_tpu_torch.ops import omm
@@ -561,12 +584,41 @@ def _time_split(A, what):
     nops = (4 + 8 + 2) * A.numel()  # csrc/split.cu: max, scaling, digits
     b_ms, b_by = bound(nbytes, nops, F64)
     k = A.shape[axis]
-    log(f"[3 split] {what} {tuple(A.shape)} (k = {k}, {d.cat.shape[0]} "
+    log(f"[{tag}] {what} {tuple(A.shape)} (k = {k}, {d.cat.shape[0]} "
         f"rows): bitwise equal at S = 8 and 6; S = 8 kernel {ms:.4f} ms "
         f"warm, {cold_ms:.4f} ms cold L2, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}, {nbytes} B), {100 * b_ms / cold_ms:.1f} % "
         "of it cold")
     return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms), nbytes, nops
+
+
+def stage_splits(h, rng, tag):
+    """The split kernel against its plain twin, bit for bit at 8 and 6
+    slices, at the six stage operands of one Ozaki mass apply of `h` on a
+    seeded perturbed velocity, each timed at 8 slices (warm and with a
+    cold L2); returns the sums over the six, the splits of one 8-slice
+    mass apply, as kernels-line numbers."""
+    ops = mass_stage_operands(h, _perturbed_velocity(h, rng))
+    tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0)
+    nbytes = nops = 0
+    for i, A in enumerate(ops):
+        for S in (8, 6):
+            d = _split_bitwise(A, S, f"stage {i}")
+        mant, _ = torch.frexp(d.scale)
+        if not bool((mant == 0.5).all()):
+            raise AssertionError("split scales are not powers of two")
+        t, nb, no = _time_split(A, f"stage {i}", tag)
+        for key in tot:
+            tot[key] += t[key]
+        nbytes += nb
+        nops += no
+    b_ms, b_by = bound(nbytes, nops, F64)
+    log(f"[{tag}] one 8-slice mass apply's six splits: kernel "
+        f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold L2, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes} "
+        f"B), {100 * b_ms / tot['cold_ms']:.1f} % of it cold")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, **tot)
 
 
 def phase_split(h):
@@ -579,20 +631,7 @@ def phase_split(h):
     kernels-line numbers are the sums over the six stages: the splits of
     one 8-slice mass apply."""
     rng = np.random.default_rng(1)
-    ops = mass_stage_operands(h, _perturbed_velocity(h, rng))
-    tot = dict(ms=0.0, cold_ms=0.0, plain_ms=0.0)
-    nbytes = nops = 0
-    for i, A in enumerate(ops):
-        for S in (8, 6):
-            d = _split_bitwise(A, S, f"stage {i}")
-        mant, _ = torch.frexp(d.scale)
-        if not bool((mant == 0.5).all()):
-            raise AssertionError("split scales are not powers of two")
-        t, nb, no = _time_split(A, f"stage {i}")
-        for key in tot:
-            tot[key] += t[key]
-        nbytes += nb
-        nops += no
+    out = stage_splits(h, rng, "3 split")
     NE = h.NE
     for shape, what in (((NE, 8), "L2 energy operand"),
                         ((3 * NE, 192), "gather-path force operand")):
@@ -612,13 +651,7 @@ def phase_split(h):
         raise AssertionError(f"expected 2 NaN-scale rows, got {nan_rows}")
     log(f"[3 split] mixed-magnitude operand with zero, NaN and Inf rows: "
         f"bitwise equal at S = 8, 6, 4; NaN-scale rows {nan_rows}")
-    b_ms, b_by = bound(nbytes, nops, F64)
-    log(f"[3 split] one 8-slice mass apply's six splits: kernel "
-        f"{tot['ms']:.4f} ms warm, {tot['cold_ms']:.4f} ms cold L2, plain "
-        f"{tot['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes} "
-        f"B), {100 * b_ms / tot['cold_ms']:.1f} % of it cold")
-    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, **tot)
+    return out
 
 
 def phase_kernel(dev):
@@ -734,7 +767,8 @@ def _ir_line(h):
 def flagship_run(argv, tag, phase="5", drift_max=1e-12):
     """One -f drive of the CLI on the lattice path; logs its figures and
     gates it on finite state, the kernel launches and (unless `drift_max`
-    is None) the RK2Avg energy drift."""
+    is None) the RK2Avg energy drift.  Returns (run, counts), the CLI's
+    printed lines in run.log."""
     run, counts, wall, out = drive(argv)
     res, h, fom = run.result, run.hydro, run.fom
     ozaki = h.oz is not None
@@ -747,6 +781,7 @@ def flagship_run(argv, tag, phase="5", drift_max=1e-12):
     for line in out.splitlines():
         if line.startswith("|") or "step" in line or "Energy" in line:
             log(f"{p} {line}")
+    run.log = out
     log(f"{p} NE {h.NE}, NQ {h.NQ}, quadrature points {h.NE * h.NQ}, H1 "
         f"dofs {h.ndof * 3}, L2 dofs {h.NE * h.ld}, lattice "
         f"{h._lat_dims}, kron {'kron' in h._lat}, ozaki {ozaki}")
@@ -1130,7 +1165,6 @@ def phase_checkpoint():
 
 def phase_io():
     """-visit -print -k, -mb, -err and --profile on a small card run."""
-    import re
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2203,7 +2237,6 @@ def phase_amr_distributed(dev, refs):
     No hand-written kernel may launch on any rank.  The gloo cells share
     one card, their collectives staged through the host: their times say
     nothing about scaling."""
-    import re
 
     from laghos_tpu_torch.amr import driver as adrv
     from laghos_tpu_torch.amr.solver import AMRHydro
@@ -2367,10 +2400,11 @@ Q8_SEDOV_E_TOL = 1e-4
 Q8_F32_E_TOL = 1e-1
 
 
-def q8_run(h, tag, layout=None):
-    """Q8_STEPS + 1 step attempts of `h` through driver.run, |e| at every
+def steps_run(h, tag, layout=None, attempts=Q8_STEPS + 1, t_final=0.6,
+              p="[18 high order]"):
+    """`attempts` step attempts of `h` through driver.run, |e| at every
     step; on the card the launches are counted and must be one `layout`
-    kernel a q-update."""
+    kernel a q-update.  Returns (result, counts, relative drift)."""
     from laghos_tpu_torch import driver
 
     card = h.device.type == "cuda"
@@ -2380,7 +2414,8 @@ def q8_run(h, tag, layout=None):
     calls = h.qupdate_calls
     reset_counts()
     t0 = time.perf_counter()
-    res = driver.run(h, t_final=0.6, max_steps=Q8_STEPS, vis_steps=1)
+    res = driver.run(h, t_final=t_final, max_steps=attempts - 1,
+                     vis_steps=1)
     if card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2391,8 +2426,10 @@ def q8_run(h, tag, layout=None):
     if card:
         _only(counts, layout, h.qupdate_calls - calls, tag)
     drift = abs(res.energy_final - res.energy_init) / abs(res.energy_init)
-    log(f"[18 high order] {tag}: NE {h.NE}, {res.steps} steps in "
-        f"{wall:.3f} s, |e| by step {dict(res.norms)}, drift {drift:.3e}, "
+    norms = (f"|e| by step {dict(res.norms)}" if len(res.norms) <= 8
+             else f"final |e| {res.e_norm:.13e}")
+    log(f"{p} {tag}: NE {h.NE}, {res.steps} steps in {wall:.3f} s, "
+        f"{norms}, drift {drift:.3e}, "
         f"CG H1 {res.h1_iters} ({res.h1_iters / (6 * res.steps):.2f} per "
         f"component solve), L2 {res.l2_iters} "
         f"({res.l2_iters / (2 * res.steps):.2f} per solve)"
@@ -2401,7 +2438,7 @@ def q8_run(h, tag, layout=None):
     return res, counts, drift
 
 
-def _e_rel(a, b, tag, tol):
+def _e_rel(a, b, tag, tol, p="[18 high order]"):
     """max relative |e| difference over the steps of two runs, which must
     have the same steps; raises above `tol`."""
     if sorted(a.norms) != sorted(b.norms) or a.steps != b.steps:
@@ -2409,8 +2446,9 @@ def _e_rel(a, b, tag, tol):
                              f"{sorted(b.norms)}")
     rel = max(abs(a.norms[k] - b.norms[k]) / abs(b.norms[k])
               for k in a.norms)
-    log(f"[18 high order] {tag}: max rel |e| over steps "
-        f"{sorted(a.norms)}: {rel:.3e} (limit "
+    steps = sorted(a.norms)
+    shown = steps if len(steps) <= 8 else f"{steps[0]}..{steps[-1]}"
+    log(f"{p} {tag}: max rel |e| over steps {shown}: {rel:.3e} (limit "
         f"{tol:g})")
     if not rel <= tol:
         raise AssertionError(f"{tag}: |e| apart by {rel:.3e} > {tol:g}")
@@ -2434,7 +2472,7 @@ def phase_high_order(dev):
     the gather path, |e| within Q8_SEDOV_E_TOL of each other; (g) at
     rs0 (NE 8), the card against this machine's CPU: Taylor-Green |e|
     at every step within 1e-11, Sedov within Q8_SEDOV_E_TOL. Returns
-    (launches, kernel numbers at q8)."""
+    (launches, kernel numbers at q8, (d)'s (result, printed lines))."""
     p = "[18 high order]"
     t_phase = time.perf_counter()
     launches = {}
@@ -2489,17 +2527,18 @@ def phase_high_order(dev):
     del run
     torch.cuda.empty_cache()
 
-    # (d) Taylor-Green rs3
+    # (d) Taylor-Green rs3, phase 19's native reference
     run, counts = flagship_run(Q8_TG, "q8 taylor-green", phase="18")
     add(("lattice", F64), counts["lattice"])
+    tg = (run.result, run.log)
     del run
     torch.cuda.empty_cache()
 
     # (e) Taylor-Green rs2: lattice twice, gather
     hl, s_l = q8(dev, 2, 0)
-    tg_l, c, d_l = q8_run(hl, "(e) taylor-green rs2 lattice", "lattice")
+    tg_l, c, d_l = steps_run(hl, "(e) taylor-green rs2 lattice", "lattice")
     add(("lattice", F64), c["lattice"])
-    tg_l2, c, _ = q8_run(hl, "(e) taylor-green rs2 lattice again",
+    tg_l2, c, _ = steps_run(hl, "(e) taylor-green rs2 lattice again",
                          "lattice")
     add(("lattice", F64), c["lattice"])
     same = all(torch.equal(tg_l.S[k], tg_l2.S[k]) for k in tg_l.S)
@@ -2511,7 +2550,7 @@ def phase_high_order(dev):
     hg, s_g = q8(dev, 2, 0, **GATHER)
     if hg._lat is not None:
         raise AssertionError("18 (e): the gather run built the lattice")
-    tg_g, c, d_g = q8_run(hg, "(e) taylor-green rs2 gather", "element")
+    tg_g, c, d_g = steps_run(hg, "(e) taylor-green rs2 gather", "element")
     add(("element", F64), c["element"])
     log(f"{p} (e) gather setup {s_g:.3f} s")
     del hg
@@ -2524,14 +2563,14 @@ def phase_high_order(dev):
     hk, s_k = q8(dev, 2, 1, precond="kron")
     if "kron" not in hk._lat:
         raise AssertionError("18 (f): no kron factors")
-    sk, c, _ = q8_run(hk, "(f) sedov rs2 lattice kron", "lattice")
+    sk, c, _ = steps_run(hk, "(f) sedov rs2 lattice kron", "lattice")
     add(("lattice", F64), c["lattice"])
     if not sk.h1_iters <= 3 * 6 * (Q8_STEPS + 1):
         raise AssertionError(f"18 (f): kron took {sk.h1_iters} H1 "
                              "iterations")
     del hk
     hg, s_g = q8(dev, 2, 1, **GATHER)
-    sg, c, _ = q8_run(hg, "(f) sedov rs2 gather", "element")
+    sg, c, _ = steps_run(hg, "(f) sedov rs2 gather", "element")
     add(("element", F64), c["element"])
     del hg
     log(f"{p} (f) setup kron {s_k:.3f} s, gather {s_g:.3f} s")
@@ -2543,15 +2582,268 @@ def phase_high_order(dev):
     for problem, name, tol in ((0, "taylor-green", 1e-11),
                                (1, "sedov", Q8_SEDOV_E_TOL)):
         hc, _ = q8(dev, 0, problem)
-        rc, c, _ = q8_run(hc, f"(g) {name} rs0 card", "lattice")
+        rc, c, _ = steps_run(hc, f"(g) {name} rs0 card", "lattice")
         add(("lattice", F64), c["lattice"])
         hh, _ = q8("cpu", 0, problem)
-        rh, _, _ = q8_run(hh, f"(g) {name} rs0 cpu")
+        rh, _, _ = steps_run(hh, f"(g) {name} rs0 cpu")
         _e_rel(rc, rh, f"(g) {name} rs0 card vs cpu", tol)
         del hc, hh
     named = {f"{k[0]} {str(k[1])[6:]}": n for k, n in launches.items()}
     log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, timed, tg
+
+
+
+# ------------------------------------------------------------ phase 19 --
+# phase 18 (d) in the Ozaki mode: every contraction of the step an Ozaki
+# product, so the split kernel meets the q8 shapes: the lattice stages at
+# k = 129 and 256, the L2 pair's flat operands at k = 512 (the chunked
+# branch's threshold) and k = 4,096 (chunked), 16.8M q-lattice points at 6
+# slices in the q-update gradients
+Q8_TG_OZ = Q8_TG + ["--ozaki"]
+# an Ozaki run's |e| against the native run of the same call (PERF.md §2),
+# here at every step, and its final velocity field, from solves converged
+# to -cgt 1e-11 in both modes
+OZ_E_TOL = 1e-9
+OZ_V_TOL = 1e-9
+_STEP_LINE = (r"step\s+(\d+),\s+t = ([\d.]+),\s+dt = ([\d.]+),|"
+              r"Repeating step (\d+)")
+
+
+def _printed_steps(out):
+    """The (step, t, dt) of every printed step line and the step of every
+    "Repeating step" line, in order, as printed."""
+    return re.findall(_STEP_LINE, out)
+
+
+def l2_pair_operands(h, e):
+    """The two flat operands that the Ozaki L2 mass apply of `h`
+    (`ops/mass.mass_apply_e`, the energy CG's operator) splits when it
+    applies to the L2 field e (NE, ld): e itself (k = ld) and its
+    q-point values times the mass weights, (NE, NQ) (k = NQ)."""
+    from laghos_tpu_torch.ops import omm
+
+    fwd, _ = h.oz["l2"]
+    return [e.contiguous(), (omm.matmul(e, fwd) * h.massD).contiguous()]
+
+
+def phase_ozaki_q8(dev, tg):
+    """Q8-Q7 in the Ozaki mode on the card: (a) 3D Taylor-Green at rs3
+    (NE 4,096, 16,777,216 q-points) through the CLI with --ozaki, on the
+    lattice path with the IR velocity solve, against phase 18 (d)'s native
+    run `tg` = (result, printed lines): the same printed step lines, t and
+    dt at the end within 1e-12, |e| at every step within OZ_E_TOL, the
+    final velocity field within OZ_V_TOL, drift <= 1e-12, with setup
+    seconds, step_ms and its phase split, the H1 inner sweeps and outers
+    and the L2 iterations a solve, peak memory and the split launches; (b)
+    the split kernel against its plain twin, bit for bit, at the q8
+    shapes: the six stage operands of one Ozaki mass apply of (a)'s Hydro
+    (8 and 6 slices), the L2 pair's flat operands (NE, 512) and (NE, 4096)
+    of (a)'s final energy field and mixed-magnitude operands of those
+    widths with zero, NaN and Inf rows (8, 6 and 4 slices), each timed at
+    8 slices.  Returns (launches, the kernels-line numbers at q8: the six
+    stages' sums)."""
+    p = "[19 ozaki q8]"
+    t_phase = time.perf_counter()
+    res_n, log_n = tg
+    # (a) Taylor-Green rs3 --ozaki against phase 18 (d)
+    run, counts = flagship_run(Q8_TG_OZ, "q8 taylor-green ozaki", phase="19")
+    launches = {("lattice", F64): counts["lattice"], "split": counts["split"]}
+    h, res = run.hydro, run.result
+    sizes = dict(NE=h.NE, NQ=h.NQ, h1=3 * h.ndof, l2=h.NE * h.ld,
+                 lattice=h._lat_dims)
+    if sizes != Q8_SIZES or h._lat_oz is None:
+        raise AssertionError(f"q8 ozaki: sizes {sizes}, lattice_oz "
+                             f"{h._lat_oz is not None}")
+    lines, ref = _printed_steps(run.log), _printed_steps(log_n)
+    if lines != ref:
+        raise AssertionError(f"q8 ozaki: printed steps {lines} against the "
+                             f"native run's {ref}")
+    t_rel = abs(res.t - res_n.t) / res_n.t
+    dt_rel = abs(res.dt - res_n.dt) / res_n.dt
+    log(f"{p} (a) printed step lines equal the native run's ({len(lines)} "
+        f"lines); at the end t rel {t_rel:.3e}, dt rel {dt_rel:.3e} "
+        "(limit 1e-12)")
+    if not (t_rel <= 1e-12 and dt_rel <= 1e-12):
+        raise AssertionError("q8 ozaki: t or dt departs from the native run")
+    _e_rel(res, res_n, "(a) taylor-green rs3 ozaki vs native", OZ_E_TOL, p)
+    # |e| moves ~5e-10 a step here, so the fields say more: v comes from
+    # velocity solves converged to -cgt 1e-11 in both modes; the energy's
+    # change from L2 solves stopped at their cap (ROADMAP C6), whose
+    # iterates ride on round-off (not gated)
+    v, vn = res.S["v"], res_n.S["v"]
+    v_rel = float((v - vn).abs().max() / vn.abs().max())
+    de, de_n = res.S["e"] - h.S0["e"], res_n.S["e"] - h.S0["e"]
+    de_rel = float((de - de_n).abs().max() / de_n.abs().max())
+    log(f"{p} (a) final v rel {v_rel:.3e} (limit {OZ_V_TOL:g}); the "
+        f"energy field's change since t = 0 rel {de_rel:.3e} (capped L2 "
+        "CG, not gated)")
+    if not v_rel <= OZ_V_TOL:
+        raise AssertionError(f"q8 ozaki: v departs from the native run by "
+                             f"{v_rel:.3e}")
+
+    # (b) the split kernel at the q8 shapes
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(19)
+    timed = stage_splits(h, rng, "19 split q8")
+    for A, what in zip(l2_pair_operands(h, res.S["e"]),
+                       ("L2 pair operand e (NE, ld)",
+                        "L2 pair operand (B e) D (NE, NQ)")):
+        for S in (8, 6, 4):
+            _split_bitwise(A, S, what, axis=-1)
+        _time_split(A, what, "19 split q8")
+    for k in (h.ld, h.NQ):
+        # mixed magnitudes (2^-30 to 2^30), a zero, a NaN and an Inf row
+        A = torch.tensor(rng.standard_normal((67, k)) * np.exp2(
+            rng.integers(-30, 30, (67, k))), device=h.device)
+        A[1] = 0.0
+        A[4, 7] = float("nan")
+        A[-1, -1] = float("inf")
+        for S in (8, 6, 4):
+            d = _split_bitwise(A, S, f"mixed (67, {k})", axis=-1)
+        nan_rows = int(torch.isnan(d.scale).sum())
+        if nan_rows != 2:
+            raise AssertionError(f"mixed (67, {k}): {nan_rows} NaN-scale "
+                                 "rows, expected 2")
+    log(f"{p} (b) mixed-magnitude operands (67, {h.ld}) and (67, {h.NQ}) "
+        "with zero, NaN and Inf rows: bitwise equal at S = 8, 6, 4; peak "
+        f"device memory of the split checks "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del run, h, res
+    torch.cuda.empty_cache()
+    named = {(f"{k[0]} {str(k[1])[6:]}" if isinstance(k, tuple) else k): n
+             for k, n in launches.items()}
+    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
     return launches, timed
+
+
+# ------------------------------------------------------------ phase 20 --
+# BASELINE.json configs[3], the triple point (-p 3) under RK2Avg, on a 7 x 3
+# x 3 box whose element faces lie on the material interfaces (x = 1, y = z
+# = 1.5: laghos_tpu_torch/problems.py), written as an MFEM file and read by
+# -m; the built-in box01_hex (uniform 4 x 2 x 2) puts element interiors
+# across them, where RK2Avg does not conserve the printed energy (ROADMAP
+# C7).  rs2: 1,792 zones, Q2-Q1, 51 step attempts
+TP_BOX = ((7, 2, 2), (7.0, 3.0, 3.0))
+TP_ARGS = ["-p", "3", "-dim", "3", "-rs", "2", "-s", "7", "-cgt", "1e-14",
+           "-tf", "5.0", "-ms", "50", "-vs", "1"]
+TP_OPT = dict(problem=3, ode_solver=7, cg_tol=1e-14)
+# (c)'s CPU run goes in a process of its own, started before phase 19 so
+# that it runs beside phase 19's card work; its torch threads leave cores
+# to this process's host work
+TP_CPU_THREADS = 4
+TP_CPU_TIMEOUT = 600.0
+_TP_CPU = ("import json, sys\n"
+           "from laghos_tpu_torch import cli\n"
+           "res = cli.main(sys.argv[1:]).result\n"
+           "print('NORMS ' + json.dumps(sorted(res.norms.items())))\n")
+
+
+class TriplePointCpu:
+    """The aligned box's mesh file and the CLI run of phase 20 on this
+    machine's CPU, in a child process started here (`python -c`, from the
+    checkout's root, TP_CPU_THREADS torch threads); `close()` stops it if
+    it still runs and removes the file."""
+
+    def __init__(self):
+        import os
+        import tempfile
+
+        from laghos_tpu_torch.fem import mesh as fmesh
+
+        self._tmp = tempfile.TemporaryDirectory()
+        self.path = os.path.join(self._tmp.name, "box_aligned.mesh")
+        fmesh.write_mfem_mesh(fmesh.cartesian(3, *TP_BOX), self.path)
+        env = dict(os.environ, OMP_NUM_THREADS=str(TP_CPU_THREADS))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _TP_CPU, "-m", self.path] + TP_ARGS
+            + ["-d", "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def result(self):
+        """(printed step lines, {step: |e|}, wall s) of the finished run;
+        raises if it failed or outlasts TP_CPU_TIMEOUT."""
+        out, err = self.proc.communicate(timeout=TP_CPU_TIMEOUT)
+        wall = time.perf_counter() - self.t0
+        tail = [ln for ln in out.splitlines() if ln.startswith("NORMS ")]
+        if self.proc.returncode != 0 or len(tail) != 1:
+            raise AssertionError(f"the triple point's CPU run failed (exit "
+                                 f"{self.proc.returncode}): {err[-2000:]}")
+        norms = {int(k): v for k, v in json.loads(tail[0][6:])}
+        return _printed_steps(out), norms, wall
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self._tmp.cleanup()
+
+
+def phase_triple_point(dev, cpu=None):
+    """The triple point on the interface-aligned box at rs2: (a) through
+    the CLI on the lattice path (the q-lattice kernel, f64), drift <=
+    1e-12; (b) the gather path (the element kernel) on the same mesh
+    through driver.run, |e| at every step within 1e-11 of (a)'s and drift
+    <= 1e-12; (c) (a)'s command on this machine's CPU (`cpu`, a
+    TriplePointCpu started earlier, or one started here): the same
+    printed step lines, |e| at every step within 1e-11.  Returns the
+    launches."""
+    from types import SimpleNamespace
+
+    from laghos_tpu_torch.hydro import Hydro, Options
+
+    p = "[20 triple point]"
+    t_phase = time.perf_counter()
+    own = cpu is None
+    if own:
+        cpu = TriplePointCpu()
+    try:
+        argv = ["-m", cpu.path] + TP_ARGS
+        # (a) the lattice path through the CLI
+        run, counts = flagship_run(argv + ["-f", "-d", "cuda"],
+                                   "triple point lattice", phase="20")
+        res_l, log_l = run.result, run.log
+        ne = 28 * 8 ** int(TP_ARGS[TP_ARGS.index("-rs") + 1])
+        if run.hydro.NE != ne:
+            raise AssertionError(f"triple point: NE {run.hydro.NE}, not "
+                                 f"{ne}")
+        launches = {("lattice", F64): counts["lattice"]}
+        mesh = run.hydro.mesh
+        del run
+        # (b) the gather path on the same mesh
+        hg = Hydro(mesh, Options(**TP_OPT, **GATHER), device=dev)
+        if hg._lat is not None:
+            raise AssertionError("triple point: the gather run built the "
+                                 "lattice")
+        attempts = int(TP_ARGS[TP_ARGS.index("-ms") + 1]) + 1
+        res_g, c, drift = steps_run(hg, "(b) gather", "element", attempts,
+                                    t_final=5.0, p=p)
+        launches[("element", F64)] = c["element"]
+        if not drift <= 1e-12:
+            raise AssertionError(f"triple point gather: drift {drift:.3e}")
+        _e_rel(res_g, res_l, "(b) gather vs lattice", 1e-11, p)
+        del hg
+        # (c) the same command on the CPU
+        t0 = time.perf_counter()
+        lines, norms, wall = cpu.result()
+        ref = _printed_steps(log_l)
+        log(f"{p} (c) cpu: {len(norms)} steps in {wall:.3f} s from its "
+            f"start ({TP_CPU_THREADS} threads; waited "
+            f"{time.perf_counter() - t0:.3f} s for it here); printed step "
+            f"lines equal the card's: {lines == ref}")
+        if lines != ref:
+            raise AssertionError("triple point: the CPU run's step lines "
+                                 "differ from the card's")
+        _e_rel(res_l, SimpleNamespace(norms=norms, steps=len(norms)),
+               "(c) card vs cpu", 1e-11, p)
+    finally:
+        if own:
+            cpu.close()
+    named = {f"{k[0]} {str(k[1])[6:]}": n for k, n in launches.items()}
+    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -2604,16 +2896,30 @@ def main():
     # does): its launches add 0 to every entry
     phase_amr_distributed(dev, amr_refs)
     mark("17 amr ranks")
-    more, timed_q8 = phase_high_order(dev)
+    more, timed_q8, tg = phase_high_order(dev)
     for key, n in more.items():
         launches[key] = launches.get(key, 0) + n
     mark("18 high order")
+    # phase 20's CPU run, beside phase 19
+    cpu = TriplePointCpu()
+    try:
+        more, timed_q8["split"] = phase_ozaki_q8(dev, tg)
+        del tg
+        for key, n in more.items():
+            launches[key] = launches.get(key, 0) + n
+        mark("19 ozaki q8")
+        for key, n in phase_triple_point(dev, cpu).items():
+            launches[key] = launches.get(key, 0) + n
+        mark("20 triple point")
+    finally:
+        cpu.close()
     log("phase seconds: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
         enumerate(marks[1:])))
     # launches come from the main-path runs only; the packed layout is on
     # none of them.  The timed numbers are at the flagship's shapes; "q8"
-    # holds them at phase 18's (16,777,216 points)
+    # holds them at phase 18's (16,777,216 points) and, for the split, at
+    # phase 19's
     kernels = [dict(name=f"qphys_{layout}_{str(dt)[6:]}", route="cuda",
                     source=SOURCE, replaces=LAYOUTS[layout][1][dt],
                     launches=launches.get((layout, dt), 0),
@@ -2624,7 +2930,7 @@ def main():
     kernels.append(dict(name="split_f64", route="cuda", source=SPLIT_SOURCE,
                         replaces=SPLIT_REPLACES,
                         launches=launches.get("split", 0), on_path=True,
-                        **timed["split"]))
+                        **timed["split"], q8=timed_q8["split"]))
     idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path never launched: {idle}")

@@ -66,11 +66,11 @@
 //    with no block barrier in between.  The digits are staged in shared
 //    memory in D's layout: a tile of consecutive rows is one contiguous
 //    block of D, written with 16-byte stores.
-//  * Rows longer than a tile of 4 (k > 512; k = 1,536 at Q4) are cut into
-//    chunks of k: the first pass over the chunks takes the row max, the
-//    second reloads each chunk (from L2: a tile is 4 rows of A, 49 KB at k
-//    = 1,536) and writes its digits as one 8-byte-word run per row and
-//    level.
+//  * Rows longer than a tile of 4 (k > 512; 1,536 at Q4, 4,096 at Q8) are
+//    cut into chunks of k: the first pass over the chunks takes the row
+//    max, the second reloads each chunk (from L2: a tile is 4 rows of A,
+//    49 KB at k = 1,536) and writes its digits as one 8-byte-word run per
+//    row and level.
 //
 // What bounds it: each element moves 8 bytes in and S bytes out, plus 8
 // bytes of scale per row: about 100 MB at S = 8 for the flagship's
@@ -79,7 +79,9 @@
 // a tenth of the byte time, so bytes bound it.  On an H100 (700 W) the six
 // stage splits of one 8-slice mass apply reach about 43 % of their byte
 // bound with a cold L2 (0.190 ms), and the flat gather-path force operand
-// about 77 % (PERF.md's kernel table).  A scratch build with the same
+// about 77 % (PERF.md's kernel table).  At Q8-Q7 (rs3: k = 129 and 256,
+// tiles of 8 rows) the six stages reach about 61 %, and the L2 pair's
+// (4096, 4096) operand, chunked, about 46 %.  A scratch build with the same
 // copies, shared-memory traffic and stores but no max and no cascade
 // reached about 51 % at the six stages: the memory side is most of the
 // time.  Its R2 > 1 stages run at about 80 % of the flat rate: a tile's
