@@ -6,8 +6,8 @@ Drives the port's paths (`laghos_tpu_torch`) through the entry points a
 user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
-2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu)
-   from this checkout, one nvcc per source in parallel;
+2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu,
+   csrc/mass.cu) from this checkout, one nvcc per source in parallel;
 3. each kernel instance against its plain PyTorch version on the card, f64
    and f32, with inverted and NaN points mixed in, with launch times (warm,
    and with a cold L2: a 128 MiB buffer written before each launch): the
@@ -16,7 +16,14 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    bit for bit at the six stage operands of an Ozaki mass apply of the
    flagship state (8 and 6 slices), at the flat operands of the flagship's
    L2 energy (NE, 8) and gather-path force (3 NE, 192) products, and on a
-   mixed-magnitude operand with zero, NaN and Inf rows;
+   mixed-magnitude operand with zero, NaN and Inf rows; the mass kernel
+   against its plain twin, f64 and f32, bit for bit across two launches,
+   on the flagship's tables and D: the energy CG's L2 apply (NE, 8), the
+   gather path's H1 apply (3, NE, 27), and both in 2D on seeded D, each
+   also against one torch.bmm of its dense element matrices
+   (`mass.l2_mass_matrices`), timed beside the kernel, and in 3D the
+   runtime-size kernel forced at the same sizes, held to the twin and timed
+   beside the compiled instances;
 4. the reference's --checks goldens (3D and 2D Sedov) through the port's
    driver on the card, on the whole-lattice and on the gather path, and 3D
    Sedov through the Ozaki lattice path (at its gate, 3e-13);
@@ -63,10 +70,10 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    force changes between the stages too much for the previous stage's
    acceleration to save one), and the JAX package's own warm-start gate
    (3D Sedov rs1, RK4, 12 steps: fewer iterations);
-13. `batch.sweep` of four blast energies on the flagship mesh, 11 step
+13. `batch.sweep` of four blast energies on the flagship mesh, 6 step
    attempts each, every member bit for bit its separate card run;
 14. the simplex solver: 3D Sedov on cube01_tet refined three times
-   (24,576 tets, Q2-Q1, 120 q-points a tet), RK2Avg, 10 steps twice
+   (24,576 tets, Q2-Q1, 120 q-points a tet), RK2Avg, 5 steps twice
    (drift <= 1e-11, bitwise equal), its assembly's repeatability beside
    an index_add_ version (printed), then once through the CLI's simplex
    route.  The simplex path runs no hand-written kernel, as the JAX
@@ -74,10 +81,10 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 15. the AMR variant (`laghos_tpu_torch/amr/`): BASELINE AMR row 1's
    60-attempt prefix (2D, rs4, Q2-Q1) twice, bitwise equal and at the JAX
    package's pinned 51 steps / NE 70 / |e| 390.4794540789; row 3's first
-   150 accepted steps (3D, rs3) against the JAX package's trace in
+   50 accepted steps (3D, rs3) against the JAX package's trace in
    runs/ (every refine/derefine decision equal, |e| to AMR_E_TOL); row 4
    resumed from the JAX package's checkpoint in runs/ (NE 2,745, 21,041
-   true nodes a component) for 21 attempts twice, bitwise equal, against
+   true nodes a component) for 6 attempts twice, bitwise equal, against
    the JAX package's continuation, with the host syncs per accepted step;
    one CLI run with -amr.  No hand-written kernel may launch there: the
    AMR q-update is plain torch, as it is plain JAX;
@@ -86,10 +93,12 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    run (bitwise printed); (b) the flagship through the CLI on 4 ranks
    sharing the card (`-nd 4 --halo --dist-backend gloo`: NCCL refuses two
    ranks on one card, so the planes and all-reduces go through the host),
-   21 steps twice, bitwise equal, against (a) at the JAX package's
-   distributed bounds (steps, t at 1e-13, |e| and energy at 1e-11, CG-H1
-   within 1 %), drift <= 1e-12, every rank's q-lattice kernel launches
-   reported to rank 0; on 4 ranks, 5 steps each: (c) pencils 2x2 against
+   21 steps against (a) at the JAX package's distributed bounds (steps, t
+   at 1e-13, |e| and energy at 1e-11, CG-H1 within 1 %), drift <= 1e-12,
+   then its first 5 steps twice, bitwise equal (states, lines, norms, t,
+   dt, CG totals; the pair cut from 21 steps for time) and in their lines
+   and norms to the 21-step run, every rank's q-lattice and mass kernel
+   launches reported to rank 0; on 4 ranks, 5 steps each: (c) pencils 2x2 against
    (b) at step 5, (d) element chunks (the element kernel) against phase
    11's gather run, (f) the device loop bit for bit the host loop, whose
    |e| at step 5 is (b)'s bit for bit, (g) the replicated layout at rs3
@@ -107,8 +116,8 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    after every placement, and a second run of its first 5 attempts
    bitwise equal to the first's records (cut: four ranks sharing the
    card take ~9.5 ms a CG iteration); (c) row 4 resumed from the JAX
-   checkpoint (NE 2,745) on 2 gloo ranks for 3 attempts (cut from phase
-   15's 21), NE per attempt equal to phase 15 (c), |e| within
+   checkpoint (NE 2,745) on 2 gloo ranks for 2 attempts (cut from phase
+   15's 6), NE per attempt equal to phase 15 (c), |e| within
    AMR_E_TOL, with step_ms split and the collectives a step; (d) the
    CLI's -amr -nd 2 on phase 15 (d)'s arguments, its step lines equal in
    step, t, dt and NE.  No hand-written kernel launches on any rank; the
@@ -118,8 +127,9 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    lattice path in f64 and in the JAX row's f32 form (|e| within
    Q8_F32_E_TOL of f64), 3D Taylor-Green at rs3, each with setup seconds,
    step_ms and its phase split, L2 iterations a solve and peak memory;
-   the lattice- and element-layout kernels at those shapes against their
-   plain twins; at rs2 Taylor-Green on the lattice path twice (bitwise)
+   the mass kernel (L2 (NE, 512), H1 (3, NE, 729), f64 and f32, the
+   runtime-size kernel timed beside it) and the lattice- and element-layout q-point kernels at those shapes against
+   their plain twins; at rs2 Taylor-Green on the lattice path twice (bitwise)
    against the gather path (|e| at 1e-11, drift <= 1e-12) and Sedov with
    kron against the gather path (|e| within Q8_SEDOV_E_TOL); at rs0 the
    card against the CPU (Taylor-Green at 1e-11, Sedov at Q8_SEDOV_E_TOL:
@@ -151,10 +161,17 @@ every output written once) over 3.35 TB/s and its operations over the
 card's peak for their type (for the q-point kernel, the longer of the
 algorithm's operations and the FP64-pipe instructions counted in the built
 library, at half the FP64 peak); `cold_ms` is its time with a cold L2, the
-one its share of the bound is read against; `library_ms` is null, as no
-single PyTorch call computes any of these functions. The q-point kernel's
-entries carry the same numbers at phase 18's Q8-Q7 shapes under "q8", the
-split kernel's at phase 19's (the six stages of one Ozaki mass apply).
+one its share of the bound is read against; `library_ms` is null for the
+q-point and split kernels, as no single PyTorch call computes them, and
+for the mass kernel one torch.bmm of dense element mass matrices by u (at
+Q8-Q7 on seeded matrices of that shape).  The q-point kernel's entries
+carry the same numbers at phase 18's Q8-Q7 shapes under "q8", the split
+kernel's at phase 19's (the six stages of one Ozaki mass apply), the mass
+kernel's at phase 18's; its top-level numbers are the flagship's energy
+CG apply, "h1" the gather path's velocity apply.  Its launches are those
+of every main-path run of its dtype (none in the Ozaki mode, -fa, AMR or
+simplex runs, whose mass applies are other products, as in the JAX
+package).
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -208,7 +225,7 @@ OZAKI_RUN = CKPT + ["-ms", "4", "--ozaki"]
 # 3D Sedov on cube01_tet refined 3 times (24,576 tets): 10 steps in
 # SimplexHydro, a few through the CLI's simplex route (RK4, the JAX CLI's)
 SIMPLEX_RS = 3
-SIMPLEX_STEPS = 10
+SIMPLEX_STEPS = 5          # cut from 10 for the script's time
 SIMPLEX_CLI = ["-p", "1", "-m", "cube01_tet", "-rs", str(SIMPLEX_RS),
                "-cgt", "1e-11", "-ms", "2", "-d", "cuda"]
 # Options of the gather path (the default Options run the lattice path on
@@ -218,11 +235,22 @@ GATHER_STEPS = 5           # accepted steps of the rs4 gather-path run
 SOURCE = "laghos_tpu_torch/csrc/qphys.cu"
 SPLIT_SOURCE = "laghos_tpu_torch/csrc/split.cu"
 SPLIT_REPLACES = "laghos_tpu/ops/pallas_split.py:129"
+MASS_SOURCE = "laghos_tpu_torch/csrc/mass.cu"
+# the JAX package's mass apply, which XLA runs (no Pallas kernel)
+MASS_REPLACES = "laghos_tpu/ops/mass.py:68"
+# the mangled names of the mass kernel's Q8-Q7 instances (3D, L2 and H1
+# tables, f64 and f32), whose ptxas lines phase 2 prints in full
+MASS_Q8 = ("Li3ELi8ELi16E", "Li3ELi9ELi16E")
 F64, F32 = torch.float64, torch.float32
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 rates outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {F64: 34e12, F32: 67e12}
+# the mass kernel's products are batched small matrix products, which the
+# card also runs in IEEE FP64 on its tensor cores (67 TFLOP/s, cuBLAS's
+# DGEMM path): its f64 work is bound at that rate.  Its f32 work keeps
+# 67 TFLOP/s outside the tensor cores (TF32 is not f32 precision)
+MASS_PEAK_FLOPS = {F64: 67e12, F32: 67e12}
 # FP operations per q-point of the physics chain, counted from
 # csrc/qphys.cu (det and adjugate, EOS, two 3x3 eigen-solves with their
 # Jacobi sweeps, dt, stress): an estimate, not a measurement
@@ -263,6 +291,10 @@ LAYOUTS = {
 # f32 eigen-solve of the strain rate can amplify an ulp of difference);
 # 1e-5 is about 80 f32 ulps of max|sJit|.
 TOL = {F64: 1e-12, F32: 1e-5}
+# the mass kernel against its plain twin, relative to max|twin|: both sum
+# the same products in another order (the twin's tensordots through
+# cuBLAS), ~1e-16 of max|twin| expected in f64; 1e-5 is ~80 f32 ulps
+MASS_TOL = {F64: 1e-13, F32: 1e-5}
 
 
 def log(msg):
@@ -302,9 +334,26 @@ def phase_build():
     lib, b = kernels.library()
     log(f"[2 build] {b.path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {b.seconds:.2f} s)")
+    mass = {}           # kernel -> [registers, spill store bytes]
+    cur = ""
     for line in b.log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        if "mass_kernel" in cur and not any(q in cur for q in MASS_Q8):
+            k = mass.setdefault(cur, [0, 0])
+            m = re.search(r"Used (\d+) registers", line)
+            k[0] = int(m.group(1)) if m else k[0]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            k[1] = int(m.group(1)) if m else k[1]
+            continue
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[2 build] ptxas: {line.strip()}")
+    if mass:
+        regs = [r for r, _ in mass.values()]
+        log(f"[2 build] ptxas: {len(mass)} other mass kernel instances: "
+            f"{min(regs)}-{max(regs)} registers; spill stores in "
+            f"{[k for k, (_, sp) in mass.items() if sp]}")
     sass = kernels.sass_instructions(b.path)
     fp64 = kernels.sass_instructions(b.path, FP64_OPCODES)
     for code, dt in (("d", F64), ("f", F32)):
@@ -336,27 +385,54 @@ def _wrapper(layout):
 
 
 def reset_counts():
-    from laghos_tpu_torch.ops import omm
+    from laghos_tpu_torch.ops import mass, omm
 
     for layout in LAYOUTS:
         _wrapper(layout).launches = 0
     omm.split_dyn.launches = 0
+    mass.mass_apply_e.launches = 0
 
 
 def read_counts():
-    from laghos_tpu_torch.ops import omm
+    """The launch counts since the last reset."""
+    from laghos_tpu_torch.ops import mass, omm
 
     out = {layout: _wrapper(layout).launches for layout in LAYOUTS}
     out["split"] = omm.split_dyn.launches
+    out["mass"] = mass.mass_apply_e.launches
     return out
 
 
-def bound(nbytes, ops, dtype, fp64=0):
+def tally(launches, counts, layout, dtype=F64):
+    """Adds the counts of a main-path run in `dtype` to the ledger
+    `launches`: the `layout` q-point kernel's at (layout, dtype), the split
+    kernel's at "split", the mass kernel's at ("mass", dtype)."""
+    for key, n in (((layout, dtype), counts[layout]),
+                   ("split", counts["split"]),
+                   (("mass", dtype), counts["mass"])):
+        launches[key] = launches.get(key, 0) + n
+
+
+def merge(launches, more):
+    """Adds the ledger `more` to `launches`."""
+    for key, n in more.items():
+        launches[key] = launches.get(key, 0) + n
+
+
+def named(launches):
+    """The ledger with readable keys, for the log."""
+    return {(f"{k[0]} {str(k[1])[6:]}" if isinstance(k, tuple) else k): n
+            for k, n in launches.items()}
+
+
+def bound(nbytes, ops, dtype, fp64=0, peak=None):
     """(bound_ms, bound_by): the larger of the byte time at HBM bandwidth
-    and the operation time, the longer of `ops` at the card's peak for
-    `dtype` and `fp64` FP64-pipe instructions at half the FP64 peak."""
+    and the operation time, the longer of `ops` at `peak` (default the
+    card's peak for `dtype`) and `fp64` FP64-pipe instructions at half the
+    FP64 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / PEAK_FLOPS[dtype], fp64 / (PEAK_FLOPS[F64] / 2)) * 1e3
+    t_ops = max(ops / (peak or PEAK_FLOPS[dtype]),
+                fp64 / (PEAK_FLOPS[F64] / 2)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -654,12 +730,143 @@ def phase_split(h):
     return out
 
 
+def mass_ops(dim, nd1, nq1, NE, C):
+    """Operations of the sum-factorized mass apply of C components on NE
+    elements (csrc/mass.cu): two (a multiply-add) for each contracted
+    value of each output of the 2 dim 1D contractions, one multiply by D
+    a q-point."""
+    macs = sum(nq1 ** (s + 1) * nd1 ** (dim - s)
+               + nd1 ** (s + 1) * nq1 ** (dim - s) for s in range(dim))
+    return C * NE * (2 * macs + nq1 ** dim)
+
+
+def mass_check(u, D, B, dim, what, tag="3 mass", dense=True, seed=0,
+               rt=False):
+    """The mass kernel (ops/mass.mass_apply_e on CUDA tensors) against its
+    plain twin on the same operands: max|kernel - twin| within MASS_TOL of
+    max|twin|, and two launches bit for bit.  Times (median of 20, warm and
+    with a cold L2) of the kernel, the twin and the library call: one
+    torch.bmm of dense (NE, nd, nd) element mass matrices by u, built by
+    `mass.l2_mass_matrices` and held to the kernel too (dense True), or
+    seeded of that shape and dtype (dense False, where building them costs
+    too much).  With `rt`, the runtime-size kernel forced at this compiled
+    size, held to the twin at MASS_TOL and timed beside it (rt_ms,
+    rt_cold_ms).  Logged; returns the kernels-line numbers."""
+    from laghos_tpu_torch.ops import kernels, mass
+    from laghos_tpu_torch.timing import device_ms
+
+    dt = u.dtype
+    NE, nd = u.shape[-2:]
+    C = math.prod(u.shape[:-2])
+    nq1, nd1 = B.shape
+    y = mass.mass_apply_e(u, D, B, dim)
+    y2 = mass.mass_apply_e(u, D, B, dim)
+    p = mass.mass_apply_e_plain(u, D, B, dim)
+    torch.cuda.synchronize()
+    err, scale = float((y - p).abs().max()), float(p.abs().max())
+    tol = MASS_TOL[dt]
+    same = torch.equal(y, y2)
+    name = f"{what} {str(dt)[6:]}"
+    if dense:
+        M = mass.l2_mass_matrices(D, B, dim)
+    else:
+        g = torch.Generator(device=u.device).manual_seed(seed)
+        M = torch.rand((NE, nd, nd), generator=g, dtype=dt, device=u.device)
+    x = u.reshape(C, NE, nd).permute(1, 2, 0).contiguous()     # (NE, nd, C)
+    lib_err = float("nan")
+    if dense:
+        yl = torch.bmm(M, x).permute(2, 0, 1).reshape(u.shape)
+        torch.cuda.synchronize()
+        lib_err = float((yl - y).abs().max()) / scale
+        del yl
+    log(f"[{tag}] {name} (dim {dim}, nd1 {nd1}, nq1 {nq1}, C {C}, NE {NE}):"
+        f" max|kernel - twin| {err:.3e} = {err / scale:.3e} x max|twin| "
+        f"(tol {tol:g}); two launches bitwise equal {same}"
+        + (f"; dense element matrices (torch.bmm) {lib_err:.3e} x max|twin|"
+           if dense else ""))
+    if not (err <= tol * scale and same and (not dense or lib_err <= tol)):
+        raise AssertionError(f"{name}: mass kernel disagrees with its twin, "
+                             "its dense matrices or itself")
+    ms = device_ms(lambda: mass.mass_apply_e(u, D, B, dim))
+    cold_ms = device_ms(lambda: mass.mass_apply_e(u, D, B, dim), cold=True)
+    plain_ms = device_ms(lambda: mass.mass_apply_e_plain(u, D, B, dim))
+    library_ms = device_ms(lambda: torch.bmm(M, x))
+    del M, x
+    nbytes = _nbytes((u, D, B, y))
+    nops = mass_ops(dim, nd1, nq1, NE, C)
+    b_ms, b_by = bound(nbytes, nops, dt, peak=MASS_PEAK_FLOPS[dt])
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold L2, "
+        f"plain {plain_ms:.4f} ms, torch.bmm of "
+        f"{'its' if dense else 'seeded'} ({NE}, {nd}, {nd}) matrices "
+        f"{library_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{nops} operations), {100 * b_ms / cold_ms:.1f} % of it cold")
+    out = dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    if rt:
+        uc, Dc, Bc = u.contiguous(), D.contiguous(), B.contiguous()
+        yr = torch.empty_like(y)
+
+        def launch_rt():
+            kernels.launch_mass(uc, Dc, Bc, yr, C=C, NE=NE, dim=dim,
+                                nd1=nd1, nq1=nq1, rt=True)
+
+        launch_rt()
+        torch.cuda.synchronize()
+        rt_err = float((yr - p).abs().max())
+        out["rt_ms"] = device_ms(launch_rt)
+        out["rt_cold_ms"] = device_ms(launch_rt, cold=True)
+        log(f"[{tag}] {name}: the runtime-size kernel at this size "
+            f"{out['rt_ms']:.4f} ms warm, {out['rt_cold_ms']:.4f} ms cold L2 "
+            f"({out['rt_cold_ms'] / cold_ms:.2f} x the compiled instance's "
+            f"cold time); max|rt - twin| {rt_err / scale:.3e} x max|twin|, "
+            f"bitwise the compiled instance's {torch.equal(yr, y)}")
+        if not rt_err <= tol * scale:
+            raise AssertionError(f"{name}: the runtime-size mass kernel "
+                                 "disagrees with its twin")
+        del yr
+    return out
+
+
+def mass_checks(h, tag, dense, dims=(3,), seed=0):
+    """mass_check in f64 and f32 of the energy CG's L2 apply ((NE, ld), one
+    component) and the gather path's H1 apply ((dim, NE, nd)) with the
+    tables and D of `h`; for a dim other than h's, seeded positive D of
+    that size on h's elements.  Returns {dtype: L2 numbers with the H1's
+    under "h1"} of h's own dim."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dim in dims:
+        if dim == h.dim:
+            D = h.massD
+        else:
+            D = torch.tensor(rng.uniform(0.5, 1.5, (h.NE, h.nq1**dim)),
+                             dtype=h.dtype, device=h.device)
+        for dt in (F64, F32):
+            got = {}
+            for name, C in (("L2B", None), ("H1B", dim)):
+                B = h.tables[name].to(dt)
+                nd = B.shape[1] ** dim
+                shape = (h.NE, nd) if C is None else (C, h.NE, nd)
+                u = torch.tensor(rng.standard_normal(shape), dtype=dt,
+                                 device=h.device)
+                got[name] = mass_check(
+                    u, D.to(dt), B, dim, f"{dim}D {name[:2]}", tag, dense,
+                    seed=seed, rt=dim == 3)
+            if dim == h.dim:
+                out[dt] = dict(got["L2B"], h1=got["H1B"])
+    return out
+
+
 def phase_kernel(dev):
     out = {}
-    inp = element_inputs(flagship_hydro(dev, **GATHER))
+    h = flagship_hydro(dev, **GATHER)
+    inp = element_inputs(h)
     for dt in (F64, F32):
         out["element", dt] = compare("element", inp, dt)
     del inp
+    for dt, got in mass_checks(h, "3 mass", True, dims=(3, 2)).items():
+        out["mass", dt] = got
+    del h
     h = flagship_hydro(dev, ozaki=True)
     if h._lat is None or h._lat_oz is None:
         raise AssertionError("the flagship mesh did not build the lattice")
@@ -723,7 +930,7 @@ def phase_goldens(dev):
 # ------------------------------------------------------------ phase 5 --
 def drive(argv):
     """One drive through the CLI with the launch counts reset just before
-    and read just after."""
+    and read just after (in the dtype of its --dtype)."""
     import contextlib
     import io
 
@@ -741,16 +948,22 @@ def drive(argv):
     return run, read_counts(), wall, buf.getvalue()
 
 
-def _only(counts, layout, calls, what, ozaki=False):
+def _only(counts, layout, calls, what, ozaki=False, pa=True):
     """The main-path run `what` launched the `layout` q-point kernel once
-    per q-update and no other layout; the split kernel iff Ozaki."""
-    got = {k: v for k, v in counts.items() if k != "split"}
+    per q-update and no other layout; the split kernel iff Ozaki; the mass
+    kernel iff partial assembly outside the Ozaki mode (whose mass applies
+    are Ozaki products; -fa's are the CSR and the inverted element
+    matrices)."""
+    got = {k: v for k, v in counts.items() if k not in ("split", "mass")}
     want = {k: (calls if k == layout else 0) for k in got}
     split_ok = counts["split"] > 0 if ozaki else counts["split"] == 0
-    if got != want or calls == 0 or not split_ok:
+    mass = pa and not ozaki
+    mass_ok = counts["mass"] > 0 if mass else counts["mass"] == 0
+    if got != want or calls == 0 or not split_ok or not mass_ok:
         raise AssertionError(f"{what}: kernel launches {counts}, expected "
-                             f"{want} and split launches "
-                             f"{'> 0' if ozaki else '0'}")
+                             f"{want}, split launches "
+                             f"{'> 0' if ozaki else '0'} and mass launches "
+                             f"{'> 0' if mass else '0'}")
 
 
 def _ir_line(h):
@@ -917,19 +1130,15 @@ def _against(res, ref, tag, what):
 
 def phase_flagship(dev):
     launches = {}
-
-    def add(key, n):
-        launches[key] = launches.get(key, 0) + n
-
     run_j, counts = flagship_run(FLAGSHIP, "flagship")
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     res_j = run_j.result
     packed_check(run_j.hydro, res_j.S, "flagship")
     del run_j
     run_k, counts = flagship_run(FLAGSHIP_KRON, "kron")
     res_k = run_k.result
     del run_k
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     if res_k.steps != res_j.steps:
         raise AssertionError("kron and Jacobi runs took different steps")
     rel_k = abs(res_k.e_norm - res_j.e_norm) / res_j.e_norm
@@ -938,18 +1147,18 @@ def phase_flagship(dev):
         f"{res_j.h1_iters}")
 
     h, res, setup, counts = gather_run(dev, F64, GATHER_STEPS, 1e-11)
-    add(("element", F64), counts["element"])
+    tally(launches, counts, "element")
     gather_report(h, res, setup, counts, res_j, "gather")
     del h, res
 
     run_4, counts = flagship_run(NS4, "ns4")
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     res_4 = run_4.result
     del run_4
 
     run32, counts, wall32, _ = drive(FLAGSHIP_F32)
     _only(counts, "lattice", run32.hydro.qupdate_calls, "f32 lattice")
-    add(("lattice", F32), counts["lattice"])
+    tally(launches, counts, "lattice", F32)
     e32 = run32.result.e_norm
     if not math.isfinite(e32):
         raise AssertionError("f32 flagship state is not finite")
@@ -958,7 +1167,7 @@ def phase_flagship(dev):
     packed_check(run32.hydro, run32.result.S, "f32")
     del run32
     h32, res32, _, counts = gather_run(dev, F32, 2, 2e-7)
-    add(("element", F32), counts["element"])
+    tally(launches, counts, "element", F32)
     log(f"[5 f32] gather: {res32.steps} steps, |e| {res32.e_norm:.7e}, "
         f"element kernel launches {counts['element']}")
     del h32, res32
@@ -970,15 +1179,13 @@ def phase_flagship(dev):
             (FLAGSHIP_OZ_KRON, "ozaki kron", res_j, "the native Jacobi run"),
             (NS4_OZ, "ozaki ns4", res_4, "the native ns4 run")):
         run_o, counts = flagship_run(argv, tag)
-        add(("lattice", F64), counts["lattice"])
-        add("split", counts["split"])
+        tally(launches, counts, "lattice")
         _against(run_o.result, ref, tag, what)
         del run_o
         torch.cuda.empty_cache()
     h, res, setup, counts = gather_run(dev, F64, GATHER_STEPS, 1e-11,
                                        ozaki=True)
-    add(("element", F64), counts["element"])
-    add("split", counts["split"])
+    tally(launches, counts, "element")
     gather_report(h, res, setup, counts, res_j, "ozaki gather")
     del h, res
     torch.cuda.empty_cache()
@@ -995,11 +1202,11 @@ def phase_repeat(dev, fa_res):
     from laghos_tpu_torch.hydro import Hydro, Options
 
     for path, rs, kw in (("lattice", 0, dict(t_final=0.6)),
-                         ("lattice", 2, dict(t_final=0.6, max_steps=9)),
+                         ("lattice", 2, dict(t_final=0.6, max_steps=4)),
                          ("gather", 0, dict(t_final=0.6)),
                          ("ozaki lattice", 0, dict(t_final=0.6)),
                          ("ozaki lattice", 2, dict(t_final=0.6,
-                                                   max_steps=9))):
+                                                   max_steps=4))):
         opt = {"gather": GATHER, "lattice": {},
                "ozaki lattice": {"ozaki": True}}[path]
         finals = []
@@ -1082,7 +1289,7 @@ def fa_run(argv, tag):
     if not drift <= 1e-12:
         raise AssertionError(f"{tag}: RK2Avg energy drift {drift:.3e} > "
                              "1e-12")
-    _only(counts, "element", h.qupdate_calls, tag)
+    _only(counts, "element", h.qupdate_calls, tag, pa=False)
     return run, counts
 
 
@@ -1142,7 +1349,8 @@ def phase_fa(dev):
 
 def phase_checkpoint():
     """10 steps of 3D Sedov at rs3 uninterrupted, against 5 steps with
-    --checkpoint then --restore and 5 more: bit for bit."""
+    --checkpoint then --restore and 5 more: bit for bit.  Returns (the
+    launches by kernel, the uninterrupted run's RunResult)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1160,11 +1368,15 @@ def phase_checkpoint():
     if not (same and a.steps == b.steps == 10 and (a.t, a.dt) == (b.t, b.dt)):
         raise AssertionError("the resumed run differs from the "
                              "uninterrupted one")
-    return sum(c["lattice"] for c in (c1, c2, c3)), a
+    launches = {}
+    for c in (c1, c2, c3):
+        tally(launches, c, "lattice")
+    return launches, a
 
 
 def phase_io():
-    """-visit -print -k, -mb, -err and --profile on a small card run."""
+    """-visit -print -k, -mb, -err and --profile on a small card run.
+    Returns the launches by kernel."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1197,7 +1409,9 @@ def phase_io():
             and npz_ok and mem and err and math.isfinite(
                 float(err.group(1))) and kernels > 0):
         raise AssertionError("the I/O flags' outputs are missing or wrong")
-    return counts["lattice"]
+    launches = {}
+    tally(launches, counts, "lattice")
+    return launches
 
 
 # ----------------------------------------------------------- phase 11 --
@@ -1230,8 +1444,8 @@ def _loop_pair(argv, tag):
 
 def _gather_pair(dev):
     """The gather path at the flagship size through driver.run, host loop
-    then device loop on one Hydro: bit for bit.  Returns the element
-    kernel launches."""
+    then device loop on one Hydro: bit for bit.  Returns (the launches by
+    kernel, the host loop's RunResult without its state)."""
     import contextlib
     import io
 
@@ -1263,7 +1477,10 @@ def _gather_pair(dev):
         f"{rb.h1_iters}, |e| {rb.e_norm!r}, element kernel launches "
         f"{ca['element']} + {cb['element']}")
     del h
-    return ca["element"] + cb["element"], ra
+    launches = {}
+    for c in (ca, cb):
+        tally(launches, c, "element")
+    return launches, ra
 
 
 def _syncs(h, steps, device_loop):
@@ -1280,7 +1497,7 @@ def _syncs(h, steps, device_loop):
 
 
 def _timed(h, steps, device_loop):
-    """(step_ms, lattice launches) of `steps` steps of `h` through
+    """(step_ms, launch counts) of `steps` steps of `h` through
     driver.run, untimed inside (no phase fences), a sync at each end."""
     from laghos_tpu_torch import driver
 
@@ -1300,11 +1517,11 @@ def phase_device_loop(dev):
     likewise for a few steps.  Returns (the host run's RunResult, its
     setup seconds, launches by kernel, the host-loop RunResults of the
     gather and Ozaki pairs without their states)."""
-    launches = {("lattice", F64): 0}
+    launches = {}
     runs = _loop_pair(FLAGSHIP_RUN, "11 flagship")
     for (run, counts, wall, _), name in zip(runs, ("host", "device")):
         res = run.result
-        launches[("lattice", F64)] += counts["lattice"]
+        tally(launches, counts, "lattice")
         log(f"[11 device loop] flagship {name} loop through the CLI: "
             f"{res.steps} steps, step_ms "
             f"{1e3 * res.timings['total'] / res.steps:.3f} (untimed), "
@@ -1321,7 +1538,7 @@ def phase_device_loop(dev):
     for dl in (False, True, False, True):
         t, counts = _timed(h, FLAGSHIP_STEPS, dl)
         ms[dl].append(t)
-        launches[("lattice", F64)] += counts["lattice"]
+        tally(launches, counts, "lattice")
     syncs = {dl: _syncs(h, FLAGSHIP_STEPS, dl) for dl in (False, True)}
     for dl, name in ((False, "host"), (True, "device")):
         n, steps = syncs[dl]
@@ -1334,12 +1551,12 @@ def phase_device_loop(dev):
         raise AssertionError("the device loop did not cut the host syncs")
     del h
     torch.cuda.empty_cache()
-    launches[("element", F64)], gather_ref = _gather_pair(dev)
+    more, gather_ref = _gather_pair(dev)
+    merge(launches, more)
     torch.cuda.empty_cache()
     runs = _loop_pair(OZAKI_RUN, "11 ozaki")
     for run, counts, wall, _ in runs:
-        launches[("lattice", F64)] += counts["lattice"]
-        launches["split"] = launches.get("split", 0) + counts["split"]
+        tally(launches, counts, "lattice")
     r = runs[1][0].result
     oz_ref = runs[0][0].result
     oz_ref.S = None
@@ -1358,13 +1575,15 @@ def phase_solver_options(dev, ref, ref_setup):
     Jacobi's at step 5), then cg_warm_start over the flagship's 21 steps
     (the same steps, |e| within 1e-6 of the cold run's, no more H1
     iterations) and on the JAX package's warm-start gate (fewer).
-    Returns the lattice kernel launches."""
+    Returns the launches by kernel."""
     from laghos_tpu_torch import driver
 
     run, counts, wall, _ = drive(SCHWARZ_RUN)
     res, h = run.result, run.hydro
     _only(counts, "lattice", h.qupdate_calls, "12 schwarz")
-    n = launches = counts["lattice"]
+    n = counts["lattice"]
+    launches = {}
+    tally(launches, counts, "lattice")
     rel = abs(res.norms[5] - ref.norms[5]) / ref.norms[5]
     log(f"[12 schwarz] {res.steps} steps, {res.h1_iters / (6 * res.steps):.2f}"
         f" H1 iterations per component solve (Jacobi "
@@ -1386,7 +1605,7 @@ def phase_solver_options(dev, ref, ref_setup):
     wall = time.perf_counter() - t0
     counts = read_counts()
     _only(counts, "lattice", h.qupdate_calls, "12 warm start")
-    launches += counts["lattice"]
+    tally(launches, counts, "lattice")
     rel = abs(res.e_norm - ref.e_norm) / ref.e_norm
     log(f"[12 warm start] {res.steps} steps, H1 iterations {res.h1_iters} "
         f"warm against {ref.h1_iters} cold "
@@ -1412,7 +1631,7 @@ def phase_solver_options(dev, ref, ref_setup):
                               cg_warm_start=warm), device=dev)
         reset_counts()
         r = driver.run(hw, t_final=0.6, max_steps=12)
-        launches += read_counts()["lattice"]
+        tally(launches, read_counts(), "lattice")
         its[warm] = (r.h1_iters, r.steps, r.e_norm)
     rel = abs(its[True][2] - its[False][2]) / its[False][2]
     log(f"[12 warm start] the JAX package's gate (3D Sedov rs1, RK4, -cgt "
@@ -1428,12 +1647,14 @@ def phase_solver_options(dev, ref, ref_setup):
 
 # ----------------------------------------------------------- phase 13 --
 SWEEP_ENERGIES = (0.25, 0.5, 1.0, 2.0)
+SWEEP_ATTEMPTS = 6         # step attempts a member (cut from 11 for time)
 
 
 def phase_sweep(dev):
-    """batch.sweep of four blast energies on the flagship mesh for 11
-    step attempts each, every member bit for bit its separate run of
-    driver.run on the card.  Returns the lattice kernel launches."""
+    """batch.sweep of four blast energies on the flagship mesh for
+    SWEEP_ATTEMPTS step attempts each, every member bit for bit its separate run of
+    driver.run on the card.  Returns (the launches by kernel, the members'
+    digests)."""
     from laghos_tpu_torch import batch, driver
 
     h = flagship_hydro(dev, cg_tol=1e-11, precond="jacobi")
@@ -1441,13 +1662,14 @@ def phase_sweep(dev):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    out = batch.sweep(h, Sb, t_final=0.6, max_steps=10)
+    out = batch.sweep(h, Sb, t_final=0.6, max_steps=SWEEP_ATTEMPTS - 1)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
     _only(counts, "lattice", h.qupdate_calls, "13 sweep")
     for i, E in enumerate(SWEEP_ENERGIES):
-        r = driver.run(h, t_final=0.6, max_steps=10, vis_steps=10**6,
+        r = driver.run(h, t_final=0.6, max_steps=SWEEP_ATTEMPTS - 1,
+                       vis_steps=10**6,
                        S_init={k: v[i].clone() for k, v in Sb.items()})
         same = all(torch.equal(out["S"][k][i], r.S[k]) for k in r.S)
         if not (same and float(out["t"][i]) == r.t
@@ -1456,7 +1678,8 @@ def phase_sweep(dev):
             raise AssertionError(f"sweep member E0 = {E} differs from its "
                                  "separate run")
     log(f"[13 sweep] {len(SWEEP_ENERGIES)} blast energies "
-        f"{SWEEP_ENERGIES} on the flagship mesh, 11 step attempts each: "
+        f"{SWEEP_ENERGIES} on the flagship mesh, {SWEEP_ATTEMPTS} step "
+        f"attempts each: "
         f"{secs:.3f} s ({1e3 * secs / int(out['steps'].sum()):.3f} ms per "
         f"attempt); steps {out['steps'].tolist()}, t "
         f"{[round(x, 6) for x in out['t'].tolist()]}, CG-H1 "
@@ -1465,7 +1688,9 @@ def phase_sweep(dev):
     digests = [member_digest(out, i) for i in range(len(SWEEP_ENERGIES))]
     del h, Sb, out
     torch.cuda.empty_cache()
-    return counts["lattice"], digests
+    launches = {}
+    tally(launches, counts, "lattice")
+    return launches, digests
 
 
 def member_digest(out, i):
@@ -1576,8 +1801,15 @@ def phase_simplex(dev):
 AMR_ROW1 = dict(problem=1, blast_energy=0.25, order_v=2, order_e=1,
                 cg_tol=1e-8)
 AMR_ROW1_PINNED = (51, 70, 390.4794540789)   # tests/test_amr.py:157-179
-AMR_ROW3_STEPS = 150
-AMR_ROW4_ATTEMPTS = 21
+# cut from 150 and 21 to keep the script's run under 1,100 s
+# (PERF.md section 7): the JAX trace and continuation are held on their
+# prefixes (row 4's NE changes at every one of its first 6 steps).  Row 4's
+# prefix rejects no attempt (its first rejection comes after the 11th); the
+# AMR step rejection stays on the card in (a) (row 1: 9 of its 60 attempts,
+# twice, at the JAX package's pinned steps) and (b) (row 3: 9 of its 59,
+# every decision held to the JAX trace)
+AMR_ROW3_STEPS = 50
+AMR_ROW4_ATTEMPTS = 6
 # |e| against the JAX package's runs, relative.  The graded meshes'
 # velocity masses are ill-conditioned (condition number 33,105 on row 3's
 # initial forest), so the unpreconditioned CG stops at -cgm 300 short of
@@ -1588,9 +1820,9 @@ AMR_ROW4_ATTEMPTS = 21
 # exactly; |e| to AMR_E_TOL, with the first step past 1e-12 and past 1e-9
 # logged.
 AMR_E_TOL = 1e-6
-# the JAX package's continuation of runs/amr_ckpt_row4.pkl for
-# AMR_ROW4_ATTEMPTS attempts (step 1801 on), (ti, NE, |e|) of each accepted
-# step, computed on a CPU by the JAX package itself:
+# the JAX package's continuation of runs/amr_ckpt_row4.pkl for 21
+# attempts (step 1801 on), (ti, NE, |e|) of each accepted step, computed
+# on a CPU by the JAX package itself (phase 15 (c) holds its prefix):
 #   cp runs/amr_ckpt_row4.pkl CK; AMR_CKPT_PATH=CK AMR_TRACE_PATH=T.json \
 #   AMR_CKPT_EVERY=1000 python scripts/amr_golden.py 4 1856
 AMR_ROW4_JAX = (
@@ -1615,8 +1847,9 @@ AMR_ROW4_JAX = (
     (1819, 2759, 3194.477754281646),
     (1820, 2780, 3192.870291107619),
 )
+# -ms 10 (cut from 20 for time): 6 steps, refined from 13 to 43 zones
 AMR_CLI = ["-d", "cuda", "-p", "1", "-m", "square01_quad", "-rs", "3",
-           "-tf", "0.8", "-amr", "-ms", "20"]
+           "-tf", "0.8", "-amr", "-ms", "10"]
 
 
 def _amr_graded(dim, rs):
@@ -1766,11 +1999,14 @@ def phase_amr(dev):
             first9 = ti
         if r["ti"] != ti or r["NE"] != ne:
             bad.append(ti)
-    log(f"[15 amr] (c) against the JAX package's continuation: "
-        f"{len(AMR_ROW4_JAX)} steps, NE differences at {bad or 'none'}, "
-        f"max |e| rel {worst:.3e} (limit {AMR_E_TOL:g}), first > 1e-9 at "
-        f"step {first9}")
-    if not (same and len(acc) == len(AMR_ROW4_JAX) and not bad
+    log(f"[15 amr] (c) against the JAX package's continuation: the first "
+        f"{len(acc)} of its {len(AMR_ROW4_JAX)} steps, NE differences at "
+        f"{bad or 'none'}, max |e| rel {worst:.3e} (limit {AMR_E_TOL:g}), "
+        f"first > 1e-9 at step {first9}")
+    # the resumed run rejects one of its first 21 attempts, after the
+    # 11th: its first AMR_ROW4_ATTEMPTS attempts are steps 1801 on (a CPU
+    # run too)
+    if not (same and len(acc) == AMR_ROW4_ATTEMPTS and not bad
             and worst <= AMR_E_TOL):
         raise AssertionError("AMR row 4 resume")
     del ha, hb, runs
@@ -1806,6 +2042,10 @@ DIST_RANKS = 4
 DIST_CLI = FLAGSHIP_RUN + ["-nd", str(DIST_RANKS), "--halo",
                            "--dist-backend", "gloo"]
 DIST_STEPS = 5
+# (b)'s repeatability pair: the same command for its first DIST_STEPS steps
+# (cut from 21 for the script's time), twice
+DIST_CLI_REPEAT = list(DIST_CLI)
+DIST_CLI_REPEAT[DIST_CLI_REPEAT.index("-ms") + 1] = str(DIST_STEPS - 1)
 DIST_RS = 3                # refinements of the rs3 runs of (e) and (g)
 DIST_TIMEOUT = 300.0       # a deadlocked launch fails instead of hanging
 
@@ -1916,7 +2156,8 @@ def dist_ranks_pair(comm):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    sw = batch.sweep(hs, Sb, t_final=0.6, max_steps=10, n_devices=comm.size,
+    sw = batch.sweep(hs, Sb, t_final=0.6, max_steps=SWEEP_ATTEMPTS - 1,
+                     n_devices=comm.size,
                      comm=comm)
     torch.cuda.synchronize()
     out["sweep"] = {"wall": time.perf_counter() - t0, "counts": read_counts(),
@@ -1926,22 +2167,21 @@ def dist_ranks_pair(comm):
     return out
 
 
-def _only_ranks(infos, layout, what, ozaki=False):
+def _only_ranks(launches, infos, layout, what, ozaki=False, dtype=F64):
     """Every rank launched the `layout` kernel once per q-update and no
-    other layout; the split kernel iff Ozaki.  Returns the launches."""
-    n = 0
+    other layout; the split kernel iff Ozaki.  Adds the ranks' counts to
+    the ledger `launches`."""
     for r, info in enumerate(infos):
         _only(info["counts"], layout, info["calls"], f"{what} rank {r}",
               ozaki)
-        n += info["counts"][layout]
-    return n
+        tally(launches, info["counts"], layout, dtype)
 
 
 def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     """Distributed runs (parallel/): (a) the flagship over slabs at world
     size 1 on NCCL against phase 11's lattice Jacobi run; (b) the flagship
-    through the CLI over 4 slab ranks sharing the card (gloo), twice,
-    bitwise, against (a); (c) pencils, (d) element chunks, (f) the device
+    through the CLI over 4 slab ranks sharing the card (gloo) against
+    (a), then its first DIST_STEPS steps twice, bitwise; (c) pencils, (d) element chunks, (f) the device
     loop against the host loop, (g) the replicated layout at rs3, on 4
     ranks; (e) Ozaki slabs at rs3 and (h) the collective sweep on 2 ranks.
     Returns the launches by kernel."""
@@ -1951,10 +2191,6 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
 
     t_phase = time.perf_counter()
     launches = {}
-
-    def add(key, n):
-        launches[key] = launches.get(key, 0) + n
-
     p = "[16 distributed]"
     # (a) world size 1 on NCCL, in this process
     t0 = time.perf_counter()
@@ -1972,7 +2208,7 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
         counts = read_counts()
         G = v.to_global(r.S)
     _only(counts, "lattice", v.qupdate_calls, "16 (a)")
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     one = _summary(r)
     bitwise = all(torch.equal(G[k], ref.S[k].cpu()) for k in G)
     rel = abs(one["e_norm"] - ref.e_norm) / ref.e_norm
@@ -1989,55 +2225,65 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     del h, v, r, G
     torch.cuda.empty_cache()
 
-    # (b) the flagship through the CLI, 4 ranks sharing the card, twice
+    # (b) the flagship through the CLI, 4 ranks sharing the card, then its
+    # first DIST_STEPS steps twice
     runs_b = []
-    for i in range(2):
+    for i, argv in enumerate((DIST_CLI, DIST_CLI_REPEAT, DIST_CLI_REPEAT)):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        run = cli.main(DIST_CLI)
+        run = cli.main(argv)
         wall = time.perf_counter() - t0
         if any(read_counts().values()):
             raise AssertionError("16 (b): the parent process launched a "
                                  "kernel; the ranks run the path")
         for r_, rk in enumerate(run.ranks):
             c_ = rk["launches"]
-            if not (c_["lattice"] > 0 and c_["element"] == c_["packed"]
-                    == c_["split"] == 0):
+            if not (c_["lattice"] > 0 and c_["mass"] > 0 and c_["element"]
+                    == c_["packed"] == c_["split"] == 0):
                 raise AssertionError(f"16 (b) rank {r_}: launches {c_}")
+            tally(launches, c_, "lattice")
         runs_b.append((run, wall))
         lines = [ln for ln in run.log.splitlines() if ln.startswith("step")]
         log(f"{p} (b) run {i + 1}: `python -m laghos_tpu_torch "
-            f"{' '.join(DIST_CLI)}`: {run.result.steps} steps in {wall:.3f} "
+            f"{' '.join(argv)}`: {run.result.steps} steps in {wall:.3f} "
             f"s wall (rank spawn and host setup included; run "
             f"{run.result.timings['total']:.3f} s, step_ms "
             f"{1e3 * run.result.timings['total'] / run.result.steps:.3f}); "
             f"last line {lines[-1]!r}; lattice kernel launches per rank "
             f"{[rk['launches']['lattice'] for rk in run.ranks]}, NE per "
             f"rank {[rk['NE'] for rk in run.ranks]}")
-    (b1, _), (b2, _) = runs_b
-    rb1, rb2 = b1.result, b2.result
-    same = (all(torch.equal(rb1.S[k], rb2.S[k]) for k in rb1.S)
-            and rb1.norms == rb2.norms and b1.log == b2.log
-            and (rb1.steps, rb1.t, rb1.dt, rb1.h1_iters, rb1.l2_iters)
-            == (rb2.steps, rb2.t, rb2.dt, rb2.h1_iters, rb2.l2_iters))
+    (b1, _), (b2, _), (b3, _) = runs_b
+    rb1, rb2, rb3 = b1.result, b2.result, b3.result
+
+    def head(run):
+        """The distinct printed step lines of steps 1..DIST_STEPS."""
+        return {ln for ln in run.log.splitlines()
+                if (m := re.match(r"step\s+(\d+),", ln))
+                and int(m.group(1)) <= DIST_STEPS}
+
+    same = (rb2.steps == DIST_STEPS
+            and all(torch.equal(rb2.S[k], rb3.S[k]) for k in rb2.S)
+            and rb2.norms == rb3.norms and b2.log == b3.log
+            and (rb2.steps, rb2.t, rb2.dt, rb2.h1_iters, rb2.l2_iters)
+            == (rb3.steps, rb3.t, rb3.dt, rb3.h1_iters, rb3.l2_iters))
+    prefix = (head(b2) == head(b1)
+              and all(rb2.norms[s] == rb1.norms[s] for s in rb2.norms))
     sb = _summary(rb1)
     rel_b = _dist_close(sb, one, "16 (b) against (a)")
     drift_b = _drift(sb)
-    log(f"{p} (b) the two runs bitwise equal (states, lines, t, dt, CG "
-        f"totals): {same}; against (a): |e| rel {rel_b:.3e}, t "
+    log(f"{p} (b) the two {DIST_STEPS}-step runs bitwise equal (states, "
+        f"lines, |e| norms, t, dt, CG totals): {same}; their lines "
+        f"and |e| at steps 1-{DIST_STEPS} bitwise the 21-step run's: "
+        f"{prefix}; the 21-step run against (a): |e| rel {rel_b:.3e}, t "
         f"{sb['t']!r} / {one['t']!r}, CG-H1 {sb['h1_iters']} / "
         f"{one['h1_iters']}; energy drift {drift_b:.3e}")
-    if not same:
+    if not (same and prefix):
         raise AssertionError("16 (b): two runs at world size 4 differ")
     if not drift_b <= 1e-12:
         raise AssertionError(f"16 (b): drift {drift_b:.3e} > 1e-12")
-    for rk in b1.ranks:
-        add(("lattice", F64), rk["launches"]["lattice"])
-    for rk in b2.ranks:
-        add(("lattice", F64), rk["launches"]["lattice"])
     e5_b = rb1.norms[DIST_STEPS]
-    del runs_b, b1, b2, rb1, rb2
+    del runs_b, b1, b2, b3, rb1, rb2, rb3
 
     # (c), (d), (f), (g) on 4 ranks sharing the card
     t0 = time.perf_counter()
@@ -2046,13 +2292,11 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     wall4 = time.perf_counter() - t0
     o = outs[0]
     for tag in ("pencil", "slab host", "slab device"):
-        add(("lattice", F64), _only_ranks([x[tag] for x in outs], "lattice",
-                                          f"16 {tag}"))
+        _only_ranks(launches, [x[tag] for x in outs], "lattice", f"16 {tag}")
     for tag in ("chunk", "replicated"):
-        add(("element", F64), _only_ranks([x[tag] for x in outs], "element",
-                                          f"16 {tag}"))
-    add(("element", F32), _only_ranks([x["replicated f32"] for x in outs],
-                                      "element", "16 replicated f32"))
+        _only_ranks(launches, [x[tag] for x in outs], "element", f"16 {tag}")
+    _only_ranks(launches, [x["replicated f32"] for x in outs], "element",
+                "16 replicated f32", dtype=F32)
     pen, sh, sd = o["pencil"], o["slab host"], o["slab device"]
     rel_c = abs(pen["e_norm"] - e5_b) / e5_b
     log(f"{p} (c) pencils 2x2, {pen['steps']} steps: |e| {pen['e_norm']!r} "
@@ -2108,9 +2352,8 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     outs = pcomm.launch(dist_ranks_pair, 2, "gloo", "cuda",
                         timeout=DIST_TIMEOUT)
     wall2 = time.perf_counter() - t0
-    add(("lattice", F64), _only_ranks([x["ozaki"] for x in outs], "lattice",
-                                      "16 (e) ozaki", ozaki=True))
-    add("split", sum(x["ozaki"]["counts"]["split"] for x in outs))
+    _only_ranks(launches, [x["ozaki"] for x in outs], "lattice",
+                "16 (e) ozaki", ozaki=True)
     oz = outs[0]["ozaki"]
     rel_e = _dist_close(oz, _summary(oz_ref),
                         "16 (e) against phase 11's Ozaki run")
@@ -2120,7 +2363,7 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
         f"split launches per rank "
         f"{[x['ozaki']['counts']['split'] for x in outs]}")
     sws = [x["sweep"] for x in outs]
-    add(("lattice", F64), _only_ranks(sws, "lattice", "16 (h) sweep"))
+    _only_ranks(launches, sws, "lattice", "16 (h) sweep")
     same_h = all(sw["digests"] == digests for sw in sws)
     log(f"{p} (h) batch.sweep(n_devices=2) of phase 13's "
         f"{len(SWEEP_ENERGIES)} members: every member bitwise its phase 13 "
@@ -2147,9 +2390,9 @@ AMR_DIST_RANKS = 4
 # iteration (one host-staged all-reduce each), so (b)'s second run repeats
 # only the first AMR_TRAJ_REPEAT_ATTEMPTS attempts (the first refinement
 # included) of the first; (c) runs AMR_ROW4_DIST_ATTEMPTS of phase 15
-# (c)'s 21 attempts
+# (c)'s AMR_ROW4_ATTEMPTS
 AMR_TRAJ_REPEAT_ATTEMPTS = 5
-AMR_ROW4_DIST_ATTEMPTS = 3
+AMR_ROW4_DIST_ATTEMPTS = 2
 AMR_DIST_CLI = AMR_CLI + ["-nd", "2", "--dist-backend", "gloo"]
 _CLI_LINE = (r"step\s+(\d+),\s+t = ([\d.]+),\s+dt = ([\d.]+),\s+"
              r"\|e\| = ([\deE+.-]+)\s+NE=(\d+)")
@@ -2230,7 +2473,7 @@ def phase_amr_distributed(dev, refs):
     after every placement printed, then a second run of its first
     AMR_TRAJ_REPEAT_ATTEMPTS attempts, bitwise its records; (c) row 4
     resumed from the JAX checkpoint (NE 2,745) on 2 gloo ranks for
-    AMR_ROW4_DIST_ATTEMPTS attempts (cut from 21), NE per attempt equal to
+    AMR_ROW4_DIST_ATTEMPTS attempts (cut from phase 15's), NE per attempt equal to
     phase 15 (c) and |e| within AMR_E_TOL, with step_ms split and the
     collectives a step; (d) the CLI's `-amr -nd 2 --dist-backend gloo` on
     phase 15 (d)'s arguments, its step lines equal in step, t, dt and NE.
@@ -2477,9 +2720,6 @@ def phase_high_order(dev):
     t_phase = time.perf_counter()
     launches = {}
 
-    def add(key, n):
-        launches[key] = launches.get(key, 0) + n
-
     def q8(device, rs, problem, **opt):
         """(Hydro at Q8-Q7 on cube01_hex refined `rs` times, setup s)."""
         t0 = time.perf_counter()
@@ -2490,7 +2730,7 @@ def phase_high_order(dev):
     # (a) Sedov rs3, lattice, Jacobi, f64
     run, counts = flagship_run(Q8_SEDOV, "q8 sedov", phase="18",
                                drift_max=None)
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     h, res_a = run.hydro, run.result
     sizes = dict(NE=h.NE, NQ=h.NQ, h1=3 * h.ndof, l2=h.NE * h.ld,
                  lattice=h._lat_dims)
@@ -2500,8 +2740,13 @@ def phase_high_order(dev):
         f"({h.opt.cg_max_iter}) in {res_a.l2_iters} of "
         f"{h.opt.cg_max_iter * 2 * res_a.steps} iterations")
 
-    # (b) the kernels at q8 shapes, against their plain twins
+    # (b) the kernels at q8 shapes, against their plain twins: the mass
+    # kernel on (a)'s tables and D (torch.bmm timed on seeded matrices:
+    # q8's dense L2 matrices alone are 8.6 GB), then the q-point kernel
     timed = {}
+    for dt, got in mass_checks(h, "18 mass q8", False, seed=18).items():
+        timed["mass", dt] = got
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lat = lattice_inputs(h, seed=18)
     for dt in (F64, F32):
@@ -2521,7 +2766,7 @@ def phase_high_order(dev):
     # (c) the JAX row's form: f32, -cgt 2e-7
     run, counts = flagship_run(Q8_SEDOV_F32, "q8 sedov f32", phase="18",
                                drift_max=None)
-    add(("lattice", F32), counts["lattice"])
+    tally(launches, counts, "lattice", F32)
     _e_rel(run.result, res_a, "(c) sedov f32 -cgt 2e-7 vs f64 -cgt 1e-11",
            Q8_F32_E_TOL)
     del run
@@ -2529,7 +2774,7 @@ def phase_high_order(dev):
 
     # (d) Taylor-Green rs3, phase 19's native reference
     run, counts = flagship_run(Q8_TG, "q8 taylor-green", phase="18")
-    add(("lattice", F64), counts["lattice"])
+    tally(launches, counts, "lattice")
     tg = (run.result, run.log)
     del run
     torch.cuda.empty_cache()
@@ -2537,10 +2782,10 @@ def phase_high_order(dev):
     # (e) Taylor-Green rs2: lattice twice, gather
     hl, s_l = q8(dev, 2, 0)
     tg_l, c, d_l = steps_run(hl, "(e) taylor-green rs2 lattice", "lattice")
-    add(("lattice", F64), c["lattice"])
+    tally(launches, c, "lattice")
     tg_l2, c, _ = steps_run(hl, "(e) taylor-green rs2 lattice again",
                          "lattice")
-    add(("lattice", F64), c["lattice"])
+    tally(launches, c, "lattice")
     same = all(torch.equal(tg_l.S[k], tg_l2.S[k]) for k in tg_l.S)
     log(f"{p} (e) lattice run repeated on its Hydro (setup {s_l:.3f} s): "
         f"final state bitwise equal {same}")
@@ -2551,7 +2796,7 @@ def phase_high_order(dev):
     if hg._lat is not None:
         raise AssertionError("18 (e): the gather run built the lattice")
     tg_g, c, d_g = steps_run(hg, "(e) taylor-green rs2 gather", "element")
-    add(("element", F64), c["element"])
+    tally(launches, c, "element")
     log(f"{p} (e) gather setup {s_g:.3f} s")
     del hg
     _e_rel(tg_g, tg_l, "(e) taylor-green rs2 gather vs lattice", 1e-11)
@@ -2564,14 +2809,14 @@ def phase_high_order(dev):
     if "kron" not in hk._lat:
         raise AssertionError("18 (f): no kron factors")
     sk, c, _ = steps_run(hk, "(f) sedov rs2 lattice kron", "lattice")
-    add(("lattice", F64), c["lattice"])
+    tally(launches, c, "lattice")
     if not sk.h1_iters <= 3 * 6 * (Q8_STEPS + 1):
         raise AssertionError(f"18 (f): kron took {sk.h1_iters} H1 "
                              "iterations")
     del hk
     hg, s_g = q8(dev, 2, 1, **GATHER)
     sg, c, _ = steps_run(hg, "(f) sedov rs2 gather", "element")
-    add(("element", F64), c["element"])
+    tally(launches, c, "element")
     del hg
     log(f"{p} (f) setup kron {s_k:.3f} s, gather {s_g:.3f} s")
     _e_rel(sg, sk, "(f) sedov rs2 gather (Jacobi) vs lattice (kron)",
@@ -2583,13 +2828,13 @@ def phase_high_order(dev):
                                (1, "sedov", Q8_SEDOV_E_TOL)):
         hc, _ = q8(dev, 0, problem)
         rc, c, _ = steps_run(hc, f"(g) {name} rs0 card", "lattice")
-        add(("lattice", F64), c["lattice"])
+        tally(launches, c, "lattice")
         hh, _ = q8("cpu", 0, problem)
         rh, _, _ = steps_run(hh, f"(g) {name} rs0 cpu")
         _e_rel(rc, rh, f"(g) {name} rs0 card vs cpu", tol)
         del hc, hh
-    named = {f"{k[0]} {str(k[1])[6:]}": n for k, n in launches.items()}
-    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"{p} launches {named(launches)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches, timed, tg
 
 
@@ -2648,7 +2893,8 @@ def phase_ozaki_q8(dev, tg):
     res_n, log_n = tg
     # (a) Taylor-Green rs3 --ozaki against phase 18 (d)
     run, counts = flagship_run(Q8_TG_OZ, "q8 taylor-green ozaki", phase="19")
-    launches = {("lattice", F64): counts["lattice"], "split": counts["split"]}
+    launches = {}
+    tally(launches, counts, "lattice")
     h, res = run.hydro, run.result
     sizes = dict(NE=h.NE, NQ=h.NQ, h1=3 * h.ndof, l2=h.NE * h.ld,
                  lattice=h._lat_dims)
@@ -2711,9 +2957,8 @@ def phase_ozaki_q8(dev, tg):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del run, h, res
     torch.cuda.empty_cache()
-    named = {(f"{k[0]} {str(k[1])[6:]}" if isinstance(k, tuple) else k): n
-             for k, n in launches.items()}
-    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"{p} launches {named(launches)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches, timed
 
 
@@ -2809,7 +3054,8 @@ def phase_triple_point(dev, cpu=None):
         if run.hydro.NE != ne:
             raise AssertionError(f"triple point: NE {run.hydro.NE}, not "
                                  f"{ne}")
-        launches = {("lattice", F64): counts["lattice"]}
+        launches = {}
+        tally(launches, counts, "lattice")
         mesh = run.hydro.mesh
         del run
         # (b) the gather path on the same mesh
@@ -2820,7 +3066,7 @@ def phase_triple_point(dev, cpu=None):
         attempts = int(TP_ARGS[TP_ARGS.index("-ms") + 1]) + 1
         res_g, c, drift = steps_run(hg, "(b) gather", "element", attempts,
                                     t_final=5.0, p=p)
-        launches[("element", F64)] = c["element"]
+        tally(launches, c, "element")
         if not drift <= 1e-12:
             raise AssertionError(f"triple point gather: drift {drift:.3e}")
         _e_rel(res_g, res_l, "(b) gather vs lattice", 1e-11, p)
@@ -2841,8 +3087,8 @@ def phase_triple_point(dev, cpu=None):
     finally:
         if own:
             cpu.close()
-    named = {f"{k[0]} {str(k[1])[6:]}": n for k, n in launches.items()}
-    log(f"{p} launches {named}; phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"{p} launches {named(launches)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2866,50 +3112,48 @@ def main():
     mark("5 flagship")
     phase_golden_rows()
     mark("7 golden rows")
+    # the -fa runs launch the element kernel alone (fa_run's _only holds
+    # their split and mass counts at 0)
     fa_res, n_fa = phase_fa(dev)
     launches[("element", F64)] += n_fa
     mark("8 fa")
-    n_ckpt, ckpt_ref = phase_checkpoint()
+    more, ckpt_ref = phase_checkpoint()
+    merge(launches, more)
     mark("9 checkpoint")
-    launches[("lattice", F64)] += n_ckpt + phase_io()
+    merge(launches, phase_io())
     mark("10 io")
     launches[("element", F64)] += phase_repeat(dev, fa_res)
     mark("6 repeat")
     ref, ref_setup, more, refs = phase_device_loop(dev)
-    for key, n in more.items():
-        launches[key] = launches.get(key, 0) + n
+    merge(launches, more)
     mark("11 device loop")
-    launches[("lattice", F64)] += phase_solver_options(dev, ref, ref_setup)
+    merge(launches, phase_solver_options(dev, ref, ref_setup))
     mark("12 solver options")
-    n_sweep, digests = phase_sweep(dev)
-    launches[("lattice", F64)] += n_sweep
+    more, digests = phase_sweep(dev)
+    merge(launches, more)
     mark("13 sweep")
     phase_simplex(dev)
     mark("14 simplex")
     amr_refs = phase_amr(dev)
     mark("15 amr")
-    for key, n in phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
-                                    ckpt_ref, digests).items():
-        launches[key] = launches.get(key, 0) + n
+    merge(launches, phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
+                                      ckpt_ref, digests))
     mark("16 distributed")
     # the AMR path launches no hand-written kernel (phase 17 raises if one
     # does): its launches add 0 to every entry
     phase_amr_distributed(dev, amr_refs)
     mark("17 amr ranks")
     more, timed_q8, tg = phase_high_order(dev)
-    for key, n in more.items():
-        launches[key] = launches.get(key, 0) + n
+    merge(launches, more)
     mark("18 high order")
     # phase 20's CPU run, beside phase 19
     cpu = TriplePointCpu()
     try:
         more, timed_q8["split"] = phase_ozaki_q8(dev, tg)
         del tg
-        for key, n in more.items():
-            launches[key] = launches.get(key, 0) + n
+        merge(launches, more)
         mark("19 ozaki q8")
-        for key, n in phase_triple_point(dev, cpu).items():
-            launches[key] = launches.get(key, 0) + n
+        merge(launches, phase_triple_point(dev, cpu))
         mark("20 triple point")
     finally:
         cpu.close()
@@ -2931,6 +3175,11 @@ def main():
                         replaces=SPLIT_REPLACES,
                         launches=launches.get("split", 0), on_path=True,
                         **timed["split"], q8=timed_q8["split"]))
+    kernels += [dict(name=f"mass_apply_{str(dt)[6:].replace('loat', '')}",
+                     route="cuda", source=MASS_SOURCE, replaces=MASS_REPLACES,
+                     launches=launches.get(("mass", dt), 0), on_path=True,
+                     **timed["mass", dt], q8=timed_q8["mass", dt])
+                for dt in (F64, F32)]
     idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path never launched: {idle}")

@@ -7,8 +7,9 @@ the machine with the card, into `laghos_tpu_torch/build/` (listed in
 .gitignore), keyed on a hash of the sources and flags, so a fresh checkout
 builds once and later processes reuse the library.
 
-Kernels: `csrc/qphys.cu` (the q-point physics, `launch_qphys`) and
-`csrc/split.cu` (the Ozaki split, `launch_split`).
+Kernels: `csrc/qphys.cu` (the q-point physics, `launch_qphys`),
+`csrc/split.cu` (the Ozaki split, `launch_split`) and `csrc/mass.cu` (the
+element PA mass apply, `launch_mass`).
 
 Nothing is built or loaded while the package is imported: the CPU tests
 import every module, and a kernel is built only when a wrapper is first
@@ -112,10 +113,15 @@ def sass_instructions(path, opcodes=None) -> dict:
     library at `path`, read with `cuobjdump -sass` from nvcc's toolkit;
     with `opcodes` (a set of opcode names such as {"DFMA", "DMUL"}) only
     the instructions whose opcode, up to its first ".", is one of them."""
+    return count_sass(_sass_text(str(path)), opcodes)
+
+
+@functools.lru_cache(maxsize=4)
+def _sass_text(path):
+    """`cuobjdump -sass` of the library at `path`, once per process."""
     cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
-    text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+    return subprocess.run([cuobjdump, "-sass", path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return count_sass(text, opcodes)
 
 
 def count_sass(text, opcodes=None) -> dict:
@@ -155,6 +161,15 @@ def library():
         ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, p]
     lib.split_launch.restype = ctypes.c_int
+    lib.mass_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, p, p, p, p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, p]
+    lib.mass_launch.restype = ctypes.c_int
+    lib.mass_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.mass_smem_bytes.restype = ctypes.c_int64
+    lib.mass_smem_limit.argtypes = [ctypes.c_int]
+    lib.mass_smem_limit.restype = ctypes.c_int64
     lib.qphys_error_string.argtypes = [ctypes.c_int]
     lib.qphys_error_string.restype = ctypes.c_char_p
     return lib, b
@@ -203,3 +218,38 @@ def launch_split(A, D, scale, *, R1, k, R2, kp, n_slices):
     if err != 0:
         msg = lib.qphys_error_string(err).decode()
         raise RuntimeError(f"split kernel launch failed: {msg} ({err})")
+
+
+# csrc/mass.cu's return code for a block that needs more shared memory than
+# the card allows (mass_smem_bytes above mass_smem_limit)
+MASS_TOO_LARGE = 20001
+
+
+def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
+    """Launch csrc/mass.cu on PyTorch's current stream: out = B^T (D * (B u))
+    per element and component, u and out (C, NE, nd1^dim), D (NE,
+    nq1^dim), B (nq1, nd1), contiguous CUDA tensors of one dtype (f32 or
+    f64) already checked and allocated by the caller (ops/mass.mass_apply_e).
+    `rt` runs the runtime-size kernel even where a compiled instance exists
+    (chip_smoke.py times the two).  Raises on a refused launch, and names
+    the shared-memory limit when the size needs more than a block may
+    have."""
+    import torch
+
+    lib, _ = library()
+    code = {torch.float32: 0, torch.float64: 1}[u.dtype]
+    dev = u.device.index
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = lib.mass_launch(code, dev, u.data_ptr(), D.data_ptr(), B.data_ptr(),
+                          out.data_ptr(), int(C), int(NE), int(dim), int(nd1),
+                          int(nq1), int(rt), stream)
+    if err == MASS_TOO_LARGE:
+        need = lib.mass_smem_bytes(code, int(dim), int(nd1), int(nq1))
+        limit = lib.mass_smem_limit(dev)
+        raise RuntimeError(
+            f"mass kernel: (nd1, nq1) = ({nd1}, {nq1}) in {dim}D {u.dtype} "
+            f"needs {need} bytes of shared memory a block, above the card's "
+            f"limit of {limit} bytes (232,448 on an H100)")
+    if err != 0:
+        msg = lib.qphys_error_string(err).decode()
+        raise RuntimeError(f"mass kernel launch failed: {msg} ({err})")

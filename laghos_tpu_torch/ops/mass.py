@@ -5,7 +5,9 @@ MFEM's PA MassIntegrator as used by the reference's MassPAOperator
 pointwise mass conservation, with per-point data
     D(q) = w_q rho0(x_q(0)) detJ0(q)
 so each apply is B^T (D . (B u)) batched over elements, plus the gather and
-assembly of the continuous H1 space.
+assembly of the continuous H1 space.  The element apply runs the CUDA
+kernel `csrc/mass.cu` for CUDA tensors (`mass_apply_e`) and its plain twin
+`mass_apply_e_plain` for CPU tensors.
 
 Assembly on the step path goes through the incidence table
 (`build_incidence` + `e_to_l_gather`): a gather and a fixed-order sum, so
@@ -16,10 +18,12 @@ host.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from . import tensor
+from . import kernels, tensor
 
 
 def l_to_e(u_l, gather):
@@ -73,6 +77,11 @@ def e_to_l_gather(u_e, incidence, mask):
 def mass_apply_e(u_e, D, B, dim, oz=None):
     """Element-local mass apply: B^T (D * (B u)) on (..., NE, nd).
 
+    u_e (..., NE, nd1^dim), D (NE, nq1^dim) and the 1D table B (nq1, nd1)
+    of one dtype on one device.  A CUDA tensor goes to the kernel
+    `csrc/mass.cu` (counted in `mass_apply_e.launches`), a CPU tensor to
+    `mass_apply_e_plain`.
+
     With oz = (fwd StaticSplit (nd, NQ), bwd StaticSplit (NQ, nd)) of the
     dense operator the two products run as f64-accurate Ozaki products
     (ops/omm.py)."""
@@ -82,6 +91,55 @@ def mass_apply_e(u_e, D, B, dim, oz=None):
         fwd, bwd = oz
         q = omm.matmul(u_e, fwd)
         return omm.matmul(q * D, bwd)
+    NE, nd1, nq1 = _check(u_e, D, B, dim)
+    if u_e.device.type == "cpu":
+        return mass_apply_e_plain(u_e, D, B, dim)
+    if u_e.device.type != "cuda":
+        raise NotImplementedError(f"no mass kernel for {u_e.device}")
+    if u_e.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the mass kernel takes float32 or float64, got "
+                        f"{u_e.dtype}")
+    u = u_e.contiguous()
+    out = torch.empty(u_e.shape, dtype=u_e.dtype, device=u_e.device)
+    kernels.launch_mass(u, D.contiguous(), B.contiguous(), out,
+                        C=math.prod(u.shape[:-2]), NE=NE, dim=dim,
+                        nd1=nd1, nq1=nq1)
+    mass_apply_e.launches += 1
+    return out
+
+
+mass_apply_e.launches = 0
+
+
+def _check(u_e, D, B, dim):
+    """(NE, nd1, nq1) of the mass apply's operands; raises on operands of
+    different dtypes or devices or of shapes that do not fit together."""
+    if dim not in (1, 2, 3):
+        raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+    if not (u_e.dtype == D.dtype == B.dtype):
+        raise TypeError(f"mass apply dtypes differ: u {u_e.dtype}, D "
+                        f"{D.dtype}, B {B.dtype}")
+    if not (u_e.device == D.device == B.device):
+        raise ValueError(f"mass apply devices differ: u {u_e.device}, D "
+                         f"{D.device}, B {B.device}")
+    if B.dim() != 2 or D.dim() != 2 or u_e.dim() < 2:
+        raise ValueError(f"mass apply needs B (nq1, nd1), D (NE, NQ) and u "
+                         f"(..., NE, nd); got {tuple(B.shape)}, "
+                         f"{tuple(D.shape)}, {tuple(u_e.shape)}")
+    nq1, nd1 = B.shape
+    NE = D.shape[0]
+    if (tuple(u_e.shape[-2:]) != (NE, nd1**dim)
+            or D.shape[1] != nq1**dim):
+        raise ValueError(f"mass apply shapes do not fit: u "
+                         f"{tuple(u_e.shape)}, D {tuple(D.shape)}, B "
+                         f"{tuple(B.shape)} in {dim}D (want u (..., {NE}, "
+                         f"{nd1**dim}) and D ({NE}, {nq1**dim}))")
+    return NE, nd1, nq1
+
+
+def mass_apply_e_plain(u_e, D, B, dim):
+    """The plain torch version of `mass_apply_e` (its kernel's twin): the
+    sum-factorized chain of 1D contractions."""
     nd1 = B.shape[1]
     nq1 = B.shape[0]
     shp = u_e.shape

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from .. import driver
 from ..hydro import Hydro, Options
-from ..ops import omm, qphys
+from ..ops import mass, omm, qphys
 from .sharding import rank_view
 
 
@@ -58,7 +58,8 @@ def launches() -> dict:
     return {"element": qphys.physics_3d.launches,
             "lattice": qphys.physics_3d_lattice.launches,
             "packed": qphys.physics_3d_packed.launches,
-            "split": omm.split_dyn.launches}
+            "split": omm.split_dyn.launches,
+            "mass": mass.mass_apply_e.launches}
 
 
 def run_view(comm, spec) -> dict:

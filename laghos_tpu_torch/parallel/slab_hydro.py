@@ -115,7 +115,10 @@ class SlabHydro(RankView):
         self._sm = _identity_structmaps(self.dims_loc, p)
         if self.dim == 3 and h._lat is not None:
             self._build_lattice()
-        elif h.opt.ozaki:
+        if h.opt.ozaki:
+            # the element operators' splits, built on every path as Hydro
+            # builds them: the lattice form takes its chains from _lat_oz,
+            # and the energy CG applies the L2 mass with these on both
             self.oz = dense_oz(self._np("H1B"), self._np("H1G"),
                                self._np("L2B"), self.dim, self.device)
 

@@ -40,8 +40,9 @@ CASES = {
 }
 
 
-# device-side names of the hand-written kernels (csrc/split.cu, csrc/qphys.cu)
-HAND_KERNELS = ("split_kernel", "qphys_kernel")
+# device-side names of the hand-written kernels (csrc/split.cu, csrc/qphys.cu,
+# csrc/mass.cu: mass_kernel and mass_kernel_rt)
+HAND_KERNELS = ("split_kernel", "qphys_kernel", "mass_kernel")
 
 
 def hand_kernel_times(events, steps):

@@ -6,6 +6,7 @@ SlabHydro and the conforming runs at 1e-12 (`tests/test_slab_ozaki.py:
 32-56`), and a short trajectory of 2 slabs against the port's single
 rank at the JAX tests' bounds."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +14,8 @@ from laghos_tpu.fem import mesh as jmesh
 from laghos_tpu.hydro import Hydro as JHydro
 from laghos_tpu.hydro import Options as JOptions
 from laghos_tpu.parallel.slab_hydro import SlabHydro as JSlabHydro
-from laghos_tpu_torch.parallel import comm, probes
+from laghos_tpu_torch.parallel import comm, probes, runs
+from laghos_tpu_torch.parallel.slab_hydro import SlabHydro
 
 from test_torch_dist_slab import (LAUNCH_TIMEOUT, assert_close, port_ranks,
                                   port_single, spec)
@@ -61,3 +63,24 @@ def test_ozaki_slabs_match_single():
     sp = oz_spec(steps=3)
     got = port_ranks(sp, 2)
     assert_close(got, port_single(sp))
+
+
+@pytest.mark.parametrize("ozaki", [True, False], ids=["ozaki", "native"])
+def test_slab_world_one_rates_are_single_device_bits(ozaki):
+    """A slab view at world size 1 runs the single device's operators: its
+    rates on a perturbed state are the Hydro's bit for bit.  In the Ozaki
+    mode that includes the energy CG's L2 mass apply, which runs Ozaki
+    products on every path (the view took the native apply before)."""
+    h = runs.build_hydro(spec(ozaki=ozaki))
+    S = dict(h.S0)
+    S["v"] = S["v"] + torch.tensor(0.1 * np.random.default_rng(0).normal(
+        size=tuple(S["v"].shape)), dtype=h.dtype)
+    with comm.single("gloo", "cpu") as c:
+        view = SlabHydro(h, c)
+        assert (view.oz is not None) == ozaki
+        rates, dt, _ = view._mult(view.from_global(S))
+        got = view.to_global(rates)
+    want, dt1, _ = h._mult(S)
+    for k in "xve":
+        assert torch.equal(got[k], want[k]), k
+    assert float(dt) == float(dt1)

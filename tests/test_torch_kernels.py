@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (element, q-lattice and packed layouts of
-csrc/qphys.cu, f64 and f32; the Ozaki split of csrc/split.cu) against their
-plain PyTorch versions, on the card; the Ozaki int8 products of
+csrc/qphys.cu, f64 and f32; the Ozaki split of csrc/split.cu; the element
+PA mass apply of csrc/mass.cu, f64 and f32) against their plain PyTorch
+versions, on the card; the Ozaki int8 products of
 ops/omm.py and the full-assembly mass product of ops/assemble.py on the
 card against the same products on the CPU.  This file imports neither JAX
 nor `laghos_tpu`, so it also runs on a machine without them:
@@ -17,6 +18,7 @@ import torch
 from laghos_tpu_torch.fem import mesh as tmesh
 from laghos_tpu_torch.hydro import Hydro, Options
 from laghos_tpu_torch.ops import lattice as tlat
+from laghos_tpu_torch.ops import mass as tmass
 from laghos_tpu_torch.ops import omm
 from laghos_tpu_torch.ops import qphys
 from laghos_tpu_torch.ops import qupdate as tqup
@@ -560,3 +562,127 @@ def test_graphed_cg_matches_eager():
                   else list(reads), graph=g) for g in (False, True)]
         assert torch.equal(res[0].x, res[1].x), tol
         assert torch.equal(res[0].iters, res[1].iters), tol
+
+
+# (nd1, nq1) of csrc/mass.cu's compiled instances (2D and 3D), then sizes of
+# its runtime-size kernel: every 1D size, and 2D/3D sizes of no compiled
+# instance (an odd nq1, nd1 > nq1, -ok 5's L2, -ok 12's H1, the largest
+# that fits in f64)
+MASS_COMPILED = [(1, 2), (2, 2), (2, 4), (3, 4), (3, 6), (4, 6), (4, 8),
+                 (5, 8), (6, 12), (7, 12), (8, 16), (9, 16)]
+MASS_CASES = ([(dim, d1, q1) for dim in (2, 3) for d1, q1 in MASS_COMPILED]
+              + [(1, 3, 4), (1, 9, 16), (1, 20, 40), (2, 3, 5), (2, 5, 3),
+                 (3, 5, 10), (3, 2, 3), (3, 13, 24)])
+
+
+def _mass_operands(dim, d1, q1, C, NE, dtype, dev, seed=0):
+    """Seeded u (C, NE, d1^dim), positive D (NE, q1^dim) and a table B
+    (q1, d1) on `dev`."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (t(rng.standard_normal((C, NE, d1**dim))),
+            t(rng.uniform(0.5, 1.5, (NE, q1**dim))),
+            t(rng.standard_normal((q1, d1))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("dim,d1,q1", MASS_CASES,
+                         ids=[f"{d}d-{a}-{b}" for d, a, b in MASS_CASES])
+def test_mass_kernel_matches_plain(dim, d1, q1, C, dtype, tol):
+    """The kernel against its plain twin at every compiled size and at
+    runtime sizes, on NE values that leave a ragged last block, relative
+    to max|twin|; a second launch gives the same bits."""
+    dev = _card()
+    NE = 2 * max(1, 2048 // q1**dim) + 3      # two blocks and a ragged one
+    u, D, B = _mass_operands(dim, d1, q1, C, NE, dtype, dev)
+    before = tmass.mass_apply_e.launches
+    y = tmass.mass_apply_e(u, D, B, dim)
+    torch.cuda.synchronize()
+    assert tmass.mass_apply_e.launches == before + 1
+    p = tmass.mass_apply_e_plain(u, D, B, dim)
+    assert y.dtype == dtype and y.shape == u.shape
+    err = float((y - p).abs().max())
+    assert err <= tol * float(p.abs().max()), err
+    assert torch.equal(tmass.mass_apply_e(u, D, B, dim), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("dim,d1,q1", [(2, 3, 4), (3, 2, 4), (3, 8, 16),
+                                       (3, 9, 16)])
+def test_mass_runtime_kernel_at_compiled_sizes(dim, d1, q1, dtype, tol):
+    """The runtime-size kernel forced at compiled sizes (as chip_smoke.py
+    times the two) against the twin, C = dim, uncounted by the wrapper."""
+    from laghos_tpu_torch.ops import kernels
+
+    dev = _card()
+    NE = 2 * max(1, 2048 // q1**dim) + 3
+    u, D, B = _mass_operands(dim, d1, q1, dim, NE, dtype, dev, seed=3)
+    before = tmass.mass_apply_e.launches
+    y = torch.empty_like(u)
+    kernels.launch_mass(u, D, B, y, C=dim, NE=NE, dim=dim, nd1=d1, nq1=q1,
+                        rt=True)
+    torch.cuda.synchronize()
+    assert tmass.mass_apply_e.launches == before
+    p = tmass.mass_apply_e_plain(u, D, B, dim)
+    assert float((y - p).abs().max()) <= tol * float(p.abs().max())
+
+
+@pytest.mark.cuda
+def test_mass_kernel_takes_views_and_never_falls_back(monkeypatch):
+    """A strided (3, NE, nd) view (the gather path's E-vector) and a
+    leading-free (NE, nd) operand (the energy CG's) go to the kernel, never
+    to the twin; other dtypes and sizes beyond the shared memory a block
+    may have raise."""
+    dev = _card()
+    u, D, B = _mass_operands(3, 3, 4, 3, 40, torch.float64, dev, seed=2)
+    ref = tmass.mass_apply_e_plain(u, D, B, 3)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tmass, "mass_apply_e_plain", refuse)
+    view = u.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not view.is_contiguous()
+    before = tmass.mass_apply_e.launches
+    y = tmass.mass_apply_e(view, D, B, 3)
+    y0 = tmass.mass_apply_e(u[0], D, B, 3)
+    torch.cuda.synchronize()
+    assert tmass.mass_apply_e.launches == before + 2
+    assert float((y - ref).abs().max()) <= 1e-13 * float(ref.abs().max())
+    assert torch.equal(y0, y[0])
+    with pytest.raises(TypeError):
+        tmass.mass_apply_e(u.half(), D.half(), B.half(), 3)
+    big = _mass_operands(3, 14, 26, 1, 2, torch.float64, dev)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tmass.mass_apply_e(*big, 3)
+    assert tmass.mass_apply_e.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_mass_kernel_on_hydro_tables_matches_dense():
+    """At the flagship's L2 and H1 tables (Q2-Q1) the kernel agrees with
+    the dense element mass matrices of `l2_mass_matrices` (one batched
+    product), and repeats bit for bit."""
+    dev = _card()
+    m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
+    h = Hydro(m, Options(problem=1, structured_el=False, lattice_ops=False,
+                         precond="jacobi"), device=dev)
+    rng = np.random.default_rng(5)
+    for name, C in (("L2B", 1), ("H1B", 3)):
+        B = h.tables[name]
+        u = torch.tensor(rng.standard_normal((C, h.NE, B.shape[1] ** 3)),
+                         dtype=h.dtype, device=dev)
+        y = tmass.mass_apply_e(u, h.massD, B, 3)
+        M = tmass.l2_mass_matrices(h.massD, B, 3)
+        dense = torch.einsum("eij,cej->cei", M, u)
+        assert float((y - dense).abs().max()) <= 1e-13 * float(
+            dense.abs().max()), name
+        assert torch.equal(tmass.mass_apply_e(u, h.massD, B, 3), y), name

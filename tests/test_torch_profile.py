@@ -63,6 +63,10 @@ def test_hand_kernel_times_from_stub_events():
            40.0, 50.0),
         ev("void (anonymous namespace)::qphys_kernel<double, 1, true, "
            "false>(Args<double>)", 100.0, 400.0),
+        ev("void (anonymous namespace)::mass_kernel<double, 3, 8, 16>("
+           "double const*)", 600.0, 700.0),
+        ev("void (anonymous namespace)::mass_kernel_rt<float>(float const*)",
+           700.0, 800.0),
         ev("split_kernel", 0.0, 1000.0, dev=cpu),        # host side
         ev("sm80_xmma_gemm_f64f64", 500.0, 900.0),       # another kernel
     ]
@@ -71,3 +75,5 @@ def test_hand_kernel_times_from_stub_events():
                                        launches_per_step=1.0)
     assert got["qphys_kernel"] == dict(ms_per_step=0.15,
                                        launches_per_step=0.5)
+    assert got["mass_kernel"] == dict(ms_per_step=0.1,
+                                      launches_per_step=1.0)
