@@ -7,7 +7,11 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
 2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu,
-   csrc/mass.cu) from this checkout, one nvcc per source in parallel;
+   csrc/mass.cu) from this checkout, one nvcc per source in parallel, on
+   the host's cores while phase 15 (which launches none) runs on the card,
+   with ptxas's registers and spills and, for the mass kernel's Q8-Q7
+   instances, their static SASS counts of shared-memory loads and stores,
+   FMAs, barriers, cp.async copies and uniform constant loads;
 3. each kernel instance against its plain PyTorch version on the card, f64
    and f32, with inverted and NaN points mixed in, with launch times (warm,
    and with a cold L2: a 128 MiB buffer written before each launch): the
@@ -84,10 +88,11 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    50 accepted steps (3D, rs3) against the JAX package's trace in
    runs/ (every refine/derefine decision equal, |e| to AMR_E_TOL); row 4
    resumed from the JAX package's checkpoint in runs/ (NE 2,745, 21,041
-   true nodes a component) for 6 attempts twice, bitwise equal, against
+   true nodes a component) for 4 attempts twice, bitwise equal, against
    the JAX package's continuation, with the host syncs per accepted step;
    one CLI run with -amr.  No hand-written kernel may launch there: the
-   AMR q-update is plain torch, as it is plain JAX;
+   AMR q-update is plain torch, as it is plain JAX.  It runs second, beside
+   the build of phase 2;
 16. distributed runs (`laghos_tpu_torch/parallel/`): (a) the flagship
    over slabs at world size 1 on NCCL, against phase 11's single-device
    run (bitwise printed); (b) the flagship through the CLI on 4 ranks
@@ -95,10 +100,11 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    ranks on one card, so the planes and all-reduces go through the host),
    21 steps against (a) at the JAX package's distributed bounds (steps, t
    at 1e-13, |e| and energy at 1e-11, CG-H1 within 1 %), drift <= 1e-12,
-   then its first 5 steps twice, bitwise equal (states, lines, norms, t,
-   dt, CG totals; the pair cut from 21 steps for time) and in their lines
-   and norms to the 21-step run, every rank's q-lattice and mass kernel
-   launches reported to rank 0; on 4 ranks, 5 steps each: (c) pencils 2x2 against
+   then its first 5 steps again, bitwise equal in its lines and norms to
+   the 21-step run and in its global state, norms, t, dt and CG totals to
+   (f)'s host-loop slabs run through the library (cut from a second CLI
+   run, for time), every rank's q-lattice and mass kernel launches
+   reported to rank 0; on 4 ranks, 5 steps each: (c) pencils 2x2 against
    (b) at step 5, (d) element chunks (the element kernel) against phase
    11's gather run, (f) the device loop bit for bit the host loop, whose
    |e| at step 5 is (b)'s bit for bit, (g) the replicated layout at rs3
@@ -110,15 +116,16 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    nothing about scaling: four processes share one card;
 17. the AMR variant across ranks (`parallel.sharding.shard_amr`): (a)
    row 1's 60-attempt prefix at world size 1 on NCCL, bit for bit phase 15
-   (a); (b) the converged 2D trajectory TRAJ on 4 gloo ranks sharing the
+   (a); (b) the converged 2D trajectory TRAJ on 2 gloo ranks sharing the
    card, record for record a single-card run (t and dt at 1e-12, |e| at
    1e-10), refining and derefining, each rank's element count printed
    after every placement, and a second run of its first 5 attempts
-   bitwise equal to the first's records (cut: four ranks sharing the
-   card take ~9.5 ms a CG iteration); (c) row 4 resumed from the JAX
-   checkpoint (NE 2,745) on 2 gloo ranks for 2 attempts (cut from phase
-   15's 6), NE per attempt equal to phase 15 (c), |e| within
-   AMR_E_TOL, with step_ms split and the collectives a step; (d) the
+   bitwise equal to the first's records (cut: ranks sharing the card
+   take 4-7 ms a CG iteration, so 2 ranks, not 4, and the repeat short);
+   (c) row 4 resumed from the JAX checkpoint (NE 2,745) on the same 2
+   ranks (one launch with (b)) for 2 attempts (cut from phase 15's 4),
+   NE per attempt equal to phase 15 (c), |e| within AMR_E_TOL, with
+   step_ms split and the collectives a step; (d) the
    CLI's -amr -nd 2 on phase 15 (d)'s arguments, its step lines equal in
    step, t, dt and NE.  No hand-written kernel launches on any rank; the
    gloo cells' times say nothing about scaling;
@@ -186,6 +193,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -241,6 +249,10 @@ MASS_REPLACES = "laghos_tpu/ops/mass.py:68"
 # the mangled names of the mass kernel's Q8-Q7 instances (3D, L2 and H1
 # tables, f64 and f32), whose ptxas lines phase 2 prints in full
 MASS_Q8 = ("Li3ELi8ELi16E", "Li3ELi9ELi16E")
+# the SASS opcodes phase 2 counts in those instances: shared-memory loads
+# and stores, the FMAs of the contractions, barriers, cp.async copies and
+# the uniform constant loads of the table operands
+MASS_SASS_OPS = ("LDS", "STS", "DFMA", "FFMA", "BAR", "LDGSTS", "ULDC")
 F64, F32 = torch.float64, torch.float32
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 rates outside
 # the tensor cores
@@ -295,6 +307,8 @@ TOL = {F64: 1e-12, F32: 1e-5}
 # the same products in another order (the twin's tensordots through
 # cuBLAS), ~1e-16 of max|twin| expected in f64; 1e-5 is ~80 f32 ulps
 MASS_TOL = {F64: 1e-13, F32: 1e-5}
+# calls of the q-point kernel's plain twin timed (the kernels' own: 20)
+PLAIN_CALLS = 5
 
 
 def log(msg):
@@ -327,13 +341,14 @@ def phase_device():
     return dev
 
 
-def phase_build():
+def phase_build(b):
+    """Phase 2 on `b`, the `kernels.build()` of this checkout (run beside
+    phase 15)."""
     from laghos_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
-    lib, b = kernels.library()
-    log(f"[2 build] {b.path.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {b.seconds:.2f} s)")
+    kernels.library()
+    log(f"[2 build] {b.path.name}: nvcc and link {b.seconds:.2f} s (beside "
+        "phase 15)")
     mass = {}           # kernel -> [registers, spill store bytes]
     cur = ""
     for line in b.log.splitlines():
@@ -354,6 +369,13 @@ def phase_build():
         log(f"[2 build] ptxas: {len(mass)} other mass kernel instances: "
             f"{min(regs)}-{max(regs)} registers; spill stores in "
             f"{[k for k, (_, sp) in mass.items() if sp]}")
+    mix = kernels.sass_instructions(b.path, MASS_SASS_OPS, per_opcode=True)
+    for name in sorted(k for k in mix if "mass_kernelI" in k
+                       and any(q in k for q in MASS_Q8)):
+        n = mix[name]
+        log(f"[2 build] SASS {name}: "
+            + ", ".join(f"{op} {n[op]}" for op in MASS_SASS_OPS)
+            + f"; LDS/FMA {n['LDS'] / max(1, n['DFMA'] + n['FFMA']):.3f}")
     sass = kernels.sass_instructions(b.path)
     fp64 = kernels.sass_instructions(b.path, FP64_OPCODES)
     for code, dt in (("d", F64), ("f", F32)):
@@ -591,14 +613,17 @@ def compare(layout, inputs, dtype, tag="3 kernel", h1order=2.0):
                              "dt = 0")
     ms = device_ms(lambda: wrapper(*args, **kw))
     cold_ms = device_ms(lambda: wrapper(*args, **kw), cold=True)
-    plain_ms = device_ms(lambda: plain(*args, **kw))
+    # the plain twin (50-60x the kernel: 167 ms a call at q8) as a
+    # yardstick, over fewer calls than the kernel
+    plain_ms = device_ms(lambda: plain(*args, **kw), n=PLAIN_CALLS)
     N = args[3].numel()
     nbytes = _nbytes(args) + _nbytes(out_k)
     fp64 = FP64_PER_POINT[layout, dtype]
     b_ms, b_by = bound(nbytes, QPHYS_OPS_PER_POINT * N, dtype, fp64 * N)
     sass_ms = QPHYS_SASS_PER_POINT[dtype] * N / ISSUE_PER_S * 1e3
     log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold "
-        f"L2, plain {plain_ms:.4f} ms (median of 20, N = {N}); bound "
+        f"L2, plain {plain_ms:.4f} ms (median of {PLAIN_CALLS}, N = {N}); "
+        f"bound "
         f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / cold_ms:.1f} % of it cold: "
         f"bytes {bound(nbytes, 0, dtype)[0]:.4f} ms, "
         f"{QPHYS_OPS_PER_POINT} operations a point "
@@ -795,7 +820,10 @@ def mass_check(u, D, B, dim, what, tag="3 mass", dense=True, seed=0,
     nbytes = _nbytes((u, D, B, y))
     nops = mass_ops(dim, nd1, nq1, NE, C)
     b_ms, b_by = bound(nbytes, nops, dt, peak=MASS_PEAK_FLOPS[dt])
-    log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold L2, "
+    grid = kernels.mass_grid(dt, u.device.index or 0, dim=dim, nd1=nd1,
+                             nq1=nq1)
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold L2 "
+        f"({grid} persistent blocks), "
         f"plain {plain_ms:.4f} ms, torch.bmm of "
         f"{'its' if dense else 'seeded'} ({NE}, {nd}, {nd}) matrices "
         f"{library_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
@@ -1801,15 +1829,16 @@ def phase_simplex(dev):
 AMR_ROW1 = dict(problem=1, blast_energy=0.25, order_v=2, order_e=1,
                 cg_tol=1e-8)
 AMR_ROW1_PINNED = (51, 70, 390.4794540789)   # tests/test_amr.py:157-179
-# cut from 150 and 21 to keep the script's run under 1,100 s
-# (PERF.md section 7): the JAX trace and continuation are held on their
-# prefixes (row 4's NE changes at every one of its first 6 steps).  Row 4's
+# cut from 150 and 21 (row 4 then from 6 to 4) to keep the script's run
+# inside its limit (PERF.md section 7): the JAX trace and continuation are
+# held on their prefixes (row 4's NE changes at every one of its first 6
+# steps: up at the first three, down at the fourth).  Row 4's
 # prefix rejects no attempt (its first rejection comes after the 11th); the
 # AMR step rejection stays on the card in (a) (row 1: 9 of its 60 attempts,
 # twice, at the JAX package's pinned steps) and (b) (row 3: 9 of its 59,
 # every decision held to the JAX trace)
 AMR_ROW3_STEPS = 50
-AMR_ROW4_ATTEMPTS = 6
+AMR_ROW4_ATTEMPTS = 4
 # |e| against the JAX package's runs, relative.  The graded meshes'
 # velocity masses are ill-conditioned (condition number 33,105 on row 3's
 # initial forest), so the unpreconditioned CG stops at -cgm 300 short of
@@ -2042,8 +2071,9 @@ DIST_RANKS = 4
 DIST_CLI = FLAGSHIP_RUN + ["-nd", str(DIST_RANKS), "--halo",
                            "--dist-backend", "gloo"]
 DIST_STEPS = 5
-# (b)'s repeatability pair: the same command for its first DIST_STEPS steps
-# (cut from 21 for the script's time), twice
+# (b)'s repeat: the same command for its first DIST_STEPS steps, held bit
+# for bit to the 21-step run's lines and to (f)'s slabs run through the
+# library (cut from a second CLI run of 21 steps, then of 5, for time)
 DIST_CLI_REPEAT = list(DIST_CLI)
 DIST_CLI_REPEAT[DIST_CLI_REPEAT.index("-ms") + 1] = str(DIST_STEPS - 1)
 DIST_RS = 3                # refinements of the rs3 runs of (e) and (g)
@@ -2125,6 +2155,11 @@ def dist_ranks_flagship(comm):
     del v
     v = SlabHydro(h, comm)
     rh = _rank_run(v, "slab host", out)
+    # the global state, for (b)'s 5-step CLI run (rank 0 reports it)
+    G = v.to_global(rh.S)
+    if comm.rank == 0:
+        out["slab host state"] = G
+    del G
     rd = _rank_run(v, "slab device", out, device_loop=True)
     out["device loop bitwise"] = _states_equal(comm, rh.S, rd.S)
     del v, rh, rd
@@ -2181,7 +2216,8 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     """Distributed runs (parallel/): (a) the flagship over slabs at world
     size 1 on NCCL against phase 11's lattice Jacobi run; (b) the flagship
     through the CLI over 4 slab ranks sharing the card (gloo) against
-    (a), then its first DIST_STEPS steps twice, bitwise; (c) pencils, (d) element chunks, (f) the device
+    (a), then its first DIST_STEPS steps, bitwise the 21-step run's lines
+    and (f)'s run; (c) pencils, (d) element chunks, (f) the device
     loop against the host loop, (g) the replicated layout at rs3, on 4
     ranks; (e) Ozaki slabs at rs3 and (h) the collective sweep on 2 ranks.
     Returns the launches by kernel."""
@@ -2226,9 +2262,9 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     torch.cuda.empty_cache()
 
     # (b) the flagship through the CLI, 4 ranks sharing the card, then its
-    # first DIST_STEPS steps twice
+    # first DIST_STEPS steps (held bit for bit to (f)'s run below)
     runs_b = []
-    for i, argv in enumerate((DIST_CLI, DIST_CLI_REPEAT, DIST_CLI_REPEAT)):
+    for i, argv in enumerate((DIST_CLI, DIST_CLI_REPEAT)):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -2253,8 +2289,8 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
             f"last line {lines[-1]!r}; lattice kernel launches per rank "
             f"{[rk['launches']['lattice'] for rk in run.ranks]}, NE per "
             f"rank {[rk['NE'] for rk in run.ranks]}")
-    (b1, _), (b2, _), (b3, _) = runs_b
-    rb1, rb2, rb3 = b1.result, b2.result, b3.result
+    (b1, _), (b2, _) = runs_b
+    rb1, rb2 = b1.result, b2.result
 
     def head(run):
         """The distinct printed step lines of steps 1..DIST_STEPS."""
@@ -2262,28 +2298,22 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
                 if (m := re.match(r"step\s+(\d+),", ln))
                 and int(m.group(1)) <= DIST_STEPS}
 
-    same = (rb2.steps == DIST_STEPS
-            and all(torch.equal(rb2.S[k], rb3.S[k]) for k in rb2.S)
-            and rb2.norms == rb3.norms and b2.log == b3.log
-            and (rb2.steps, rb2.t, rb2.dt, rb2.h1_iters, rb2.l2_iters)
-            == (rb3.steps, rb3.t, rb3.dt, rb3.h1_iters, rb3.l2_iters))
-    prefix = (head(b2) == head(b1)
+    prefix = (rb2.steps == DIST_STEPS and head(b2) == head(b1)
               and all(rb2.norms[s] == rb1.norms[s] for s in rb2.norms))
     sb = _summary(rb1)
     rel_b = _dist_close(sb, one, "16 (b) against (a)")
     drift_b = _drift(sb)
-    log(f"{p} (b) the two {DIST_STEPS}-step runs bitwise equal (states, "
-        f"lines, |e| norms, t, dt, CG totals): {same}; their lines "
-        f"and |e| at steps 1-{DIST_STEPS} bitwise the 21-step run's: "
-        f"{prefix}; the 21-step run against (a): |e| rel {rel_b:.3e}, t "
-        f"{sb['t']!r} / {one['t']!r}, CG-H1 {sb['h1_iters']} / "
-        f"{one['h1_iters']}; energy drift {drift_b:.3e}")
-    if not (same and prefix):
+    log(f"{p} (b) the {DIST_STEPS}-step run's lines and |e| at steps "
+        f"1-{DIST_STEPS} bitwise the 21-step run's: {prefix}; the 21-step "
+        f"run against (a): |e| rel {rel_b:.3e}, t {sb['t']!r} / "
+        f"{one['t']!r}, CG-H1 {sb['h1_iters']} / {one['h1_iters']}; energy "
+        f"drift {drift_b:.3e}")
+    if not prefix:
         raise AssertionError("16 (b): two runs at world size 4 differ")
     if not drift_b <= 1e-12:
         raise AssertionError(f"16 (b): drift {drift_b:.3e} > 1e-12")
     e5_b = rb1.norms[DIST_STEPS]
-    del runs_b, b1, b2, b3, rb1, rb2, rb3
+    del runs_b, b1, rb1
 
     # (c), (d), (f), (g) on 4 ranks sharing the card
     t0 = time.perf_counter()
@@ -2316,6 +2346,20 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
     same_f = (o["device loop bitwise"] and sh["norms"] == sd["norms"]
               and all(sh[k] == sd[k] for k in ("steps", "t", "dt",
                                                 "h1_iters", "l2_iters")))
+    # (b)'s 5-step CLI run against the same slabs' host loop here: two
+    # runs at world size 4, through the CLI and the library
+    Gf = o.pop("slab host state")
+    same_b = (all(torch.equal(rb2.S[k], Gf[k]) for k in Gf)
+              and rb2.norms == sh["norms"]
+              and (rb2.steps, rb2.t, rb2.dt, rb2.h1_iters, rb2.l2_iters)
+              == tuple(sh[k] for k in ("steps", "t", "dt", "h1_iters",
+                                        "l2_iters")))
+    log(f"{p} (b) the {DIST_STEPS}-step CLI run bitwise (f)'s host-loop "
+        f"slab run (global state, |e| norms, steps, t, dt, CG totals): "
+        f"{same_b}")
+    if not same_b:
+        raise AssertionError("16 (b): two runs at world size 4 differ")
+    del rb2, Gf
     log(f"{p} (f) slabs, {sd['steps']} steps: device loop bitwise the host "
         f"loop (states on every rank, t, dt, norms, CG totals): {same_f}; "
         f"host loop |e| at step {DIST_STEPS} bitwise (b)'s: "
@@ -2385,12 +2429,15 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
 AMR_TRAJ = dict(AMR_ROW1, cg_tol=1e-12, cg_max_iter=2000)
 AMR_TRAJ_RUN = dict(t_final=0.8, vis_steps=5, deref_threshold=0.9,
                     max_steps=24)
-AMR_DIST_RANKS = 4
-# cuts (PERF.md section 4): four ranks sharing the card take ~9.5 ms a CG
-# iteration (one host-staged all-reduce each), so (b)'s second run repeats
-# only the first AMR_TRAJ_REPEAT_ATTEMPTS attempts (the first refinement
-# included) of the first; (c) runs AMR_ROW4_DIST_ATTEMPTS of phase 15
-# (c)'s AMR_ROW4_ATTEMPTS
+# cuts (PERF.md section 4): ranks sharing the card take 4 (2 ranks) to 7
+# (4 ranks) ms a collective, one host-staged all-reduce a CG iteration, and
+# TRAJ's first derefinement comes at its 23rd attempt: so (b) and (c) run
+# on 2 ranks, in one launch; (b)'s second run repeats only the first
+# AMR_TRAJ_REPEAT_ATTEMPTS attempts (the first refinement included) of the
+# first; (c) runs AMR_ROW4_DIST_ATTEMPTS of phase 15 (c)'s
+# AMR_ROW4_ATTEMPTS.  tests/test_torch_dist_amr.py holds TRAJ on 2, 3 and
+# 4 CPU ranks
+AMR_DIST_RANKS = 2
 AMR_TRAJ_REPEAT_ATTEMPTS = 5
 AMR_ROW4_DIST_ATTEMPTS = 2
 AMR_DIST_CLI = AMR_CLI + ["-nd", "2", "--dist-backend", "gloo"]
@@ -2472,7 +2519,8 @@ def phase_amr_distributed(dev, refs):
     with a refinement and a derefinement and each rank's element count
     after every placement printed, then a second run of its first
     AMR_TRAJ_REPEAT_ATTEMPTS attempts, bitwise its records; (c) row 4
-    resumed from the JAX checkpoint (NE 2,745) on 2 gloo ranks for
+    resumed from the JAX checkpoint (NE 2,745) on the same ranks (the
+    launch of (b)) for
     AMR_ROW4_DIST_ATTEMPTS attempts (cut from phase 15's), NE per attempt equal to
     phase 15 (c) and |e| within AMR_E_TOL, with step_ms split and the
     collectives a step; (d) the CLI's `-amr -nd 2 --dist-backend gloo` on
@@ -2510,7 +2558,8 @@ def phase_amr_distributed(dev, refs):
         raise AssertionError("17 (a): world size 1 departs from one card")
     del h
 
-    # (b) TRAJ on AMR_DIST_RANKS gloo ranks, twice, and on the card alone
+    # (b) TRAJ on AMR_DIST_RANKS gloo ranks, twice, and on the card alone;
+    # (c) row 4 resumed, in the same launch
     h = AMRHydro(_traj_forest(), Options(**AMR_TRAJ), h0=0.25, device=dev)
     reset_counts()
     r1, t1, wall1 = _amr_run(h, **{k: v for k, v in AMR_TRAJ_RUN.items()
@@ -2521,8 +2570,15 @@ def phase_amr_distributed(dev, refs):
     spec = _amr_spec(_traj_forest(), AMR_TRAJ, AMR_TRAJ_RUN)
     short = _amr_spec(_traj_forest(), AMR_TRAJ, dict(
         AMR_TRAJ_RUN, max_steps=AMR_TRAJ_REPEAT_ATTEMPTS - 1))
-    outs, wall_b = _amr_launch(AMR_DIST_RANKS, [spec, short], "(b)")
-    b1, b2 = outs[0]
+    ck_path = "runs/amr_ckpt_row4.pkl"
+    ck = adrv.load_checkpoint(ck_path)
+    K = AMR_ROW4_DIST_ATTEMPTS
+    spec_c = {"ckpt": ck_path, "opt": AMR_ROW1,
+              "run": dict(t_final=0.6, ref_threshold=1e-3, vis_steps=10**9,
+                          max_steps=ck["steps"] + K - 1)}
+    outs, wall_bc = _amr_launch(AMR_DIST_RANKS, [spec, short, spec_c],
+                                "(b), (c)")
+    b1, b2, o = outs[0]
     same_b = (b2["trace"] == b1["trace"][:AMR_TRAJ_REPEAT_ATTEMPTS]
               and len(b2["trace"]) == AMR_TRAJ_REPEAT_ATTEMPTS
               and any(r.get("changed") for r in b2["trace"]))
@@ -2549,26 +2605,18 @@ def phase_amr_distributed(dev, refs):
         f"{events}; run walls {b1['wall']:.3f} / {b2['wall']:.3f} s "
         f"(stepping {b1['summary']['seconds']['stepping']:.3f}, rebuild "
         f"{b1['summary']['seconds']['rebuild']:.3f}), "
-        f"{b1['collectives']} collectives a rank a run, launch {wall_b:.3f} "
-        f"s; CG-H1 {b1['h1_iters']} iterations")
-    for r, o in enumerate(outs):
+        f"{b1['collectives']} collectives a rank a run, launch (with (c)) "
+        f"{wall_bc:.3f} s; CG-H1 {b1['h1_iters']} iterations")
+    for r, ro in enumerate(outs):
         log(f"{p} (b) rank {r} elements after each placement: "
-            f"{o[0]['elements']}")
+            f"{ro[0]['elements']}")
     if not (same_b and not bad and worst["t"] <= 1e-12
             and worst["dt"] <= 1e-12 and worst["e_norm"] <= 1e-10
             and all(events)):
         raise AssertionError("17 (b): TRAJ over ranks")
-    del outs, b1, b2
+    del b1, b2
 
-    # (c) row 4 resumed on 2 gloo ranks
-    ck_path = "runs/amr_ckpt_row4.pkl"
-    ck = adrv.load_checkpoint(ck_path)
-    K = AMR_ROW4_DIST_ATTEMPTS
-    spec = {"ckpt": ck_path, "opt": AMR_ROW1,
-            "run": dict(t_final=0.6, ref_threshold=1e-3, vis_steps=10**9,
-                        max_steps=ck["steps"] + K - 1)}
-    outs, wall_c = _amr_launch(2, [spec], "(c)")
-    o = outs[0][0]
+    # (c) row 4 resumed on the same ranks
     mine = o["trace"][len(ck["trace"]):]
     ref4 = refs["row4"][:len(mine)]
     acc = [r for r in mine if "t" in r]
@@ -2577,17 +2625,18 @@ def phase_amr_distributed(dev, refs):
     worst = max((abs(a["e_norm"] - b["e_norm"]) / b["e_norm"]
                  for a, b in zip(mine, ref4) if "t" in a), default=0.0)
     sec = o["summary"]["seconds"]
-    log(f"{p} (c) row 4 resumed on 2 gloo ranks, {K} attempts (NE "
+    log(f"{p} (c) row 4 resumed on {AMR_DIST_RANKS} gloo ranks, {K} "
+        f"attempts (NE "
         f"{len(ck['forest']['leaves'])} at the checkpoint): {len(acc)} "
         f"accepted steps, NE per attempt equal to phase 15 (c): {ne_same} "
         f"({[r['NE'] for r in mine]}), max |e| rel {worst:.3e} (limit "
         f"{AMR_E_TOL:g}); step_ms {1e3 * o['wall'] / max(len(acc), 1):.1f} "
         f"(stepping {1e3 * sec['stepping'] / max(len(acc), 1):.1f}, host "
         f"rebuild {1e3 * sec['rebuild'] / max(len(acc), 1):.1f}; wall "
-        f"{o['wall']:.3f} s with the host setup, launch {wall_c:.3f} s), "
+        f"{o['wall']:.3f} s with the host setup), "
         f"{o['collectives'] / max(len(acc), 1):.1f} collectives a step a "
         f"rank, CG-H1 {o['h1_iters']} iterations; elements a rank "
-        f"{[x[0]['elements'] for x in outs]}")
+        f"{[x[2]['elements'] for x in outs]}")
     if not (ne_same and worst <= AMR_E_TOL):
         raise AssertionError("17 (c): row 4 over ranks")
     del outs, o
@@ -3098,12 +3147,26 @@ def main():
 
     def mark(name):
         """The wall seconds of the phases since the last mark, for the
-        budget of the script (PERF.md §4)."""
+        budget of the script (PERF.md §4); each also on standard error,
+        so a run cut at its time limit shows how far it came."""
         marks.append((name, time.perf_counter()))
+        print(f"[chip_smoke] phase {name} done: "
+              f"{marks[-1][1] - marks[-2][1]:.1f} s, "
+              f"{marks[-1][1] - t0:.1f} s in all", file=sys.stderr,
+              flush=True)
 
     dev = phase_device()
-    phase_build()
-    mark("1-2 device, build")
+    mark("1 device")
+    # nvcc builds the kernels on the host's cores while phase 15 runs on
+    # the card: the AMR path launches no hand-written kernel
+    from laghos_tpu_torch.ops import kernels
+    with ThreadPoolExecutor(1) as ex:
+        building = ex.submit(kernels.build)
+        amr_refs = phase_amr(dev)
+        mark("15 amr (beside the build)")
+        built = building.result()
+    phase_build(built)
+    mark("2 build")
     timed = phase_kernel(dev)
     mark("3 kernel")
     phase_goldens(dev)
@@ -3134,8 +3197,6 @@ def main():
     mark("13 sweep")
     phase_simplex(dev)
     mark("14 simplex")
-    amr_refs = phase_amr(dev)
-    mark("15 amr")
     merge(launches, phase_distributed(dev, ref, refs["gather"], refs["ozaki"],
                                       ckpt_ref, digests))
     mark("16 distributed")

@@ -21,48 +21,63 @@
 // nq1^dim of D, and writes nd1^dim; the arithmetic is 2 nd1 nq1 (nd1^2 +
 // nd1 nq1 + nq1^2) multiply-adds an element and component in 3D.  At Q8-Q7
 // (L2: nd1 8, nq1 16; NE 4,096) that is 168 MB and 0.94 GFLOP in f64: 50 us
-// of bytes at 3.35 TB/s against 14 us of FP64 at the 67 TFLOP/s the card's
-// tensor cores give batched f64 products (28 us at 34 TFLOP/s outside
-// them), so bytes bound it, D being 134 MB of the 168.
+// of bytes at 3.35 TB/s against 28 us of FP64 FMA outside the tensor cores
+// (the kernel keeps IEEE FMA chains in the reference order, so no DMMA), so
+// bytes bound it, D being 134 MB of the 168.  The H1 apply (nd1 9, C 3)
+// does 3.6x the FMAs on 1.7x the bytes: ~110 us of FP64 FMA against 83 us
+// of bytes.
 //
-// Design.  Nothing leaves the chip between the first contraction and the
-// last: one block takes one element (or, when nq1^dim is small, EPB
-// elements, about 2,048 q-points a block) and runs all 2 dim contractions
-// through two shared-memory buffers, the D product folded into the last
-// forward contraction and the last transpose contraction storing straight
-// to device memory.
-//  * Each contraction takes the fastest axis of its input and puts its new
-//    axis slowest (u[z][y][x] -> [qx][z][y] -> [qy][qx][z] -> [qz][qy][qx]),
-//    so after dim contractions the axes are back in order: every stage
-//    reads rows of K contiguous values and the D product and the final
-//    store index the output flat, as D and out are laid out.
-//  * A stage's input is R rows of K values at an odd row stride (K rounded
-//    up to odd): a warp's lanes read down a column of consecutive rows, and
-//    an odd stride puts them in distinct banks (f32 and f64 alike).
-//  * A thread takes one row (its K values into registers) and a group of
-//    QG of the Q outputs of that row, so each value it loads from shared
-//    memory serves QG multiply-adds; the group count is chosen so every
-//    stage has about as many (row, group) items as the block has threads.
-//    The table is read from shared memory at one address across the lanes
-//    that share a group (a broadcast).
-//  * D's values for a thread's outputs of the D stage are loaded into
-//    registers before the first contraction (their latency hidden behind
-//    the forward stages) and serve every component: D is read once from
-//    device memory for all C components.
-//  * Each output is one fused multiply-add chain over its K inputs in
-//    ascending order: no atomics, no order that depends on timing, so two
-//    launches give the same bits.
+// The first design (one block an element, the table row of each output
+// read from shared memory) ran at 19-34 % of that bound on an H100: ptxas
+// gave its q8 f64 instances 0.66-0.68 LDS a DFMA (static SASS: L2 296 LDS,
+// 448 DFMA; H1 485, 712), so the shared-memory pipe paced the stages, and D
+// waited for its element.  This one:
+//  * takes the table as a kernel parameter: every thread reads a table
+//    value at the same address at the same time, so it comes from the
+//    constant cache as an operand of the FMA (a ULDC into a uniform
+//    register), with no register or shared-memory load; a thread then runs
+//    all the outputs of its group (TQ of them, warp-uniform) for its rows,
+//    and reads each row once with 16-byte loads (0.13 LDS a DFMA in the
+//    q8 L2 f64 instance's static SASS, 0.08 at H1);
+//  * runs persistent blocks, as many as the card holds (two an SM at q8),
+//    each walking groups of elements; while the stages of one task (a
+//    group and component) run, cp.async brings in the next task's u and
+//    the next group's D, so the byte stream runs under the arithmetic;
+//  * splits a stage with few rows among NG warp-uniform groups of threads,
+//    each taking TQ of the Q outputs, so every stage keeps the threads busy
+//    (at q8 L2 every thread runs one row of every stage);
+//  * computes each thread's offsets once a stage: the row step is chosen at
+//    compile time so every later row is the first plus a constant.
+// What bounds it now: the FP64 FMAs and their table operands.  Each FMA
+// takes its own table value (one ULDC a DFMA), so the issue slots of an
+// SM sub-partition run about as full as its FP64 pipe; at q8 L2 the byte
+// stream and the arithmetic overlap (70 % of the byte bound), at q8 H1 the
+// issue of the FMA and table-operand pairs bounds it (36 %).
+//
+// Layout: each contraction takes the fastest axis of its input and puts its
+// new axis slowest (u[z][y][x] -> [qx][z][y] -> [qy][qx][z] -> [qz][qy][qx]),
+// so after dim contractions the axes are back in order: every stage reads
+// rows of K contiguous values and the D product and the final store index
+// the output flat, as D and out are laid out.  A stage's rows lie at a
+// stride of an odd number of 16-byte vectors, so the 8 rows a quarter warp
+// loads fall in distinct bank groups.  Each output is one fused
+// multiply-add chain over its K inputs in ascending order, D multiplying
+// the last forward sum after it: no atomics, no order that depends on
+// timing, and in f64 the same bits as the first design and the plain twin.
+//
 // The sizes (nd1, nq1) of orders 1-4, 6 and 8 (L2 (k, 2k) and H1
 // (k + 1, 2k)) in 2D and 3D are compiled with their loops unrolled; any
-// other size, and every 1D size, runs one runtime-size kernel with the same
-// layout (its products read shared memory directly, and it reads D at the
-// D stage of each component).  Both take their shared memory dynamically,
-// above 48 KB after cudaFuncSetAttribute: two buffers and the table twice,
-// (buf0 + buf1 + 2 nd1 nq1) values, 55.3 KB at Q8-Q7 L2 and 56.7 KB at H1 in
-// f64.  A size whose buffers exceed the card's opt-in limit (232,448 bytes
-// on an H100) is refused (kTooLarge) and raised by the wrapper; in 3D f64
-// the largest order that fits is -ok 12 (H1 (13, 24): 182,592 bytes; -ok 13's
-// H1 (14, 26) needs 232,960).
+// other size, and every 1D size, runs one runtime-size kernel with the
+// first design's layout (its products read the table from shared memory,
+// and it reads D at the D stage of each component), a block a group of
+// elements.  Both take their shared memory dynamically, above 48 KB after
+// cudaFuncSetAttribute: the compiled instances the first stage's input,
+// D and two buffers (95,232 bytes at Q8-Q7 L2 and 96,848 at H1 in f64), the
+// runtime-size kernel two buffers and the table twice.  A runtime size whose
+// buffers exceed the card's opt-in limit (232,448 bytes on an H100) is
+// refused (kTooLarge) and raised by the wrapper; in 3D f64 the largest
+// order that fits is -ok 12 (H1 (13, 24): 182,592 bytes; -ok 13's H1
+// (14, 26) needs 232,960).
 //
 // No fast math: IEEE multiply/add, no flush to zero.
 
@@ -192,92 +207,409 @@ __device__ __forceinline__ void load_u(T* __restrict__ dst, const T* __restrict_
 }
 
 // ------------------------------------------------- compiled sizes --------
-template <typename T, int DIM, int D1, int Q1, int J, int ITD, int QGD>
-__device__ __forceinline__ void stage(const Smem<T>& s, const T (&dv)[ITD][QGD],
-                                      T* __restrict__ outc, int ne) {
-  constexpr int EPB = elems_per_block(DIM, Q1);
-  constexpr Geo G = geo(DIM, D1, Q1, EPB, J);
+// rows a stage wants for every thread to take a row of its own; a stage
+// with fewer splits its outputs among NG groups of threads instead
+constexpr int kRowsFull = kThreads;
+
+// The 1D table B (q1 rows of d1) of a compiled instance, passed by value:
+// the kernel's parameters live in a constant bank, and every thread reads a
+// table value at the same address at the same time, so it reaches the FMA
+// from the constant cache through a uniform register (one ULDC; no vector
+// register, no shared-memory load).
+template <typename T, int N>
+struct Table {
+  T v[N];
+};
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+
+// values of T in a 16-byte vector
+template <typename T>
+__host__ __device__ constexpr int vlen() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ double part(const double2& x, int w) { return w == 0 ? x.x : x.y; }
+__device__ __forceinline__ float part(const float4& x, int w) {
+  return w == 0 ? x.x : w == 1 ? x.y : w == 2 ? x.z : x.w;
+}
+
+// a row stride for K values: an odd number of 16-byte vectors, so the
+// rows a quarter warp reads at once fall in distinct 16-byte bank groups
+__host__ __device__ constexpr int pstride(int k, int v) { return (cdiv(k, v) | 1) * v; }
+
+// Stage j of 2 dim as the compiled instances run it (K, Q, R and Bn as in
+// Geo).  The block's threads form NG groups of TG (whole warps when NG >
+// 1); group g takes outputs g TQ, ..., g TQ + TQ - 1 of every row, and its
+// thread rho0 takes rows rho0, rho0 + TG, ... (TR of them, run together:
+// each table value it reads serves TR FMAs) of the group's EPB R rows (rho
+// = el R + r).  Row rho of the stage's input lies at rho P: rows of K
+// values at stride P, with no padding between blocks or elements (the
+// lanes of a warp take consecutive rows, which then lie at the one stride
+// P).  AFF: every output offset of row rho0 + i TG is row rho0's plus that
+// of row i TG (see out_row), so a thread computes its offsets once a
+// stage and adds constants.
+struct Stage {
+  int K, Q, R, Bn;
+  int TQ, NG, TG, TR;
+  int P;
+  int AFF;
+};
+
+// Offsets (in values) of row rho of a stage of Q outputs a row: the row
+// its outputs go to in the next stage's input (rows of stride P), less the
+// output's block (out_row: output q of row (el, r) goes to row (el, q,
+// r / Bn), column r % Bn), and the row of D or of out it reads or writes,
+// less the output's block (flat_row: flat element data of es values).
+__host__ __device__ constexpr unsigned out_row(unsigned rho, unsigned R, unsigned Bn, unsigned Q,
+                                               unsigned P) {
+  return rho / R * (Q * (R / Bn) * P) + rho % R / Bn * P + rho % R % Bn;
+}
+__host__ __device__ constexpr unsigned flat_row(unsigned rho, unsigned R, unsigned es) {
+  return rho / R * es + rho % R;
+}
+
+// Where a compiled instance keeps things in shared memory (offsets and
+// sizes in values of T): the first stage's input (the group's u of one
+// component), D of the group (as in device memory), and two buffers for
+// the inputs of the later stages (odd j in buf0, even j in buf1).
+struct Layout {
+  Stage st[6];
+  int ubuf, dbuf, buf0, buf1, total;
+};
+
+// whether stage j of L (its input and output layouts final) is AFF at row
+// step tg
+__host__ __device__ constexpr bool affine(const Layout& L, int dim, int j, int tg, int epb,
+                                          int nd) {
+  const Stage& s = L.st[j];
+  const int np = L.st[j + 1 < 2 * dim ? j + 1 : j].P, nq = s.Q * s.R;
+  const int rows = epb * s.R;
+  for (int rho0 = 0; rho0 < tg; ++rho0) {
+    for (int rho = rho0 + tg; rho < rows; rho += tg) {
+      const int i = rho - rho0;
+      const bool out = j == 2 * dim - 1
+                           ? flat_row(rho, s.R, nd) == flat_row(rho0, s.R, nd) + flat_row(i, s.R, nd)
+                           : out_row(rho, s.R, s.Bn, s.Q, np) ==
+                                 out_row(rho0, s.R, s.Bn, s.Q, np) + out_row(i, s.R, s.Bn, s.Q, np);
+      const bool d = j != dim - 1 ||
+                     flat_row(rho, s.R, nq) == flat_row(rho0, s.R, nq) + flat_row(i, s.R, nq);
+      if (!(out && d)) return false;
+    }
+  }
+  return true;
+}
+
+// The layout of a compiled instance.  NG: 1 for a stage of at least
+// kRowsFull rows, else the power of two (at most 4, no group without an
+// output) that brings its rows nearest kRowsFull.
+template <typename T>
+__host__ __device__ constexpr Layout make_layout(int dim, int d1, int q1) {
+  constexpr int V = vlen<T>();
+  const int epb = elems_per_block(dim, q1);
+  Layout L{};
+  for (int j = 0; j < 2 * dim; ++j) {
+    const bool fwd = j < dim;
+    const int a = fwd ? j : j - dim;
+    Stage& s = L.st[j];
+    s.K = fwd ? d1 : q1;
+    s.Q = fwd ? q1 : d1;
+    s.R = fwd ? ipow(q1, a) * ipow(d1, dim - 1 - a) : ipow(d1, a) * ipow(q1, dim - 1 - a);
+    s.Bn = a < dim - 1 ? s.K : q1;
+    s.NG = 1;
+    while (s.NG < 4 && 2 * s.NG * epb * s.R <= kRowsFull &&
+           (2 * s.NG - 1) * cdiv(s.Q, 2 * s.NG) < s.Q) {
+      s.NG *= 2;  // every group keeps an output
+    }
+    s.TQ = cdiv(s.Q, s.NG);
+    s.TG = kThreads / s.NG;
+    s.P = pstride(s.K, V);
+  }
+  // each stage's row step: with one group, the largest at most kThreads
+  // (so no more rows a thread) at which it is AFF; with more, TG (whole
+  // warps a group)
+  for (int j = 0; j < 2 * dim; ++j) {
+    Stage& s = L.st[j];
+    const int rows = epb * s.R, tg0 = s.TG;
+    for (int tg = tg0; tg > 0 && cdiv(rows, tg) == cdiv(rows, tg0); --tg) {
+      if (affine(L, dim, j, tg, epb, ipow(d1, dim))) {
+        s.TG = tg;
+        s.AFF = 1;
+        break;
+      }
+      if (s.NG > 1) break;
+    }
+    s.TR = cdiv(rows, s.TG);
+  }
+  int b0 = 0, b1 = 0;
+  for (int j = 1; j < 2 * dim; ++j) {
+    if (j & 1) {
+      b0 = imax(b0, epb * L.st[j].R * L.st[j].P);
+    } else {
+      b1 = imax(b1, epb * L.st[j].R * L.st[j].P);
+    }
+  }
+  L.ubuf = 0;
+  L.dbuf = L.ubuf + epb * L.st[0].R * L.st[0].P;
+  L.buf0 = L.dbuf + cdiv(epb * ipow(q1, dim), V) * V;
+  L.buf1 = L.buf0 + b0;
+  L.total = L.buf1 + b1;
+  return L;
+}
+
+// The layout's numbers as compile-time scalars (device code reads only
+// scalars of a constexpr host variable).
+template <typename T, int DIM, int D1, int Q1>
+struct LayoutOf {
+  static constexpr Layout L = make_layout<T>(DIM, D1, Q1);
+  static constexpr int ubuf = L.ubuf, dbuf = L.dbuf, buf0 = L.buf0, buf1 = L.buf1, total = L.total;
+};
+
+template <typename T, int DIM, int D1, int Q1, int J>
+struct StageOf {
+  static constexpr Stage S = LayoutOf<T, DIM, D1, Q1>::L.st[J];
+  static constexpr int K = S.K, Q = S.Q, R = S.R, Bn = S.Bn;
+  static constexpr int TQ = S.TQ, NG = S.NG, TG = S.TG, TR = S.TR, P = S.P;
+  static constexpr bool AFF = S.AFF != 0;
+};
+
+template <int B>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (B == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(B)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One component's u of the group's ne elements (src: the first's) into the
+// first stage's rows, with cp.async: 16-byte pieces when vec (src aligned)
+// and rows are whole vectors, else one value a copy.
+template <typename T, int DIM, int D1, int Q1>
+__device__ __forceinline__ void fetch_u(T* dst, const T* __restrict__ src, unsigned ne, bool vec) {
+  constexpr unsigned ND = ipow(D1, DIM), V = vlen<T>(), P = StageOf<T, DIM, D1, Q1, 0>::P;
+  // value f of the group's u: row f / D1, column f % D1
+  if constexpr (D1 % V == 0) {
+    if (vec) {
+      for (unsigned f = threadIdx.x * V; f < ne * ND; f += kThreads * V) {
+        cp_async<16>(dst + f / D1 * P + f % D1, src + f);
+      }
+      return;
+    }
+  }
+  for (unsigned f = threadIdx.x; f < ne * ND; f += kThreads) {
+    cp_async<sizeof(T)>(dst + f / D1 * P + f % D1, src + f);
+  }
+}
+
+// D of the group's ne elements (src: the first's), likewise, as it lies
+template <typename T, int DIM, int D1, int Q1>
+__device__ __forceinline__ void fetch_d(T* dst, const T* __restrict__ src, unsigned ne, bool vec) {
+  constexpr unsigned NQ = ipow(Q1, DIM), V = vlen<T>();
+  if constexpr (NQ % V == 0) {
+    if (vec) {
+      for (unsigned f = threadIdx.x * V; f < ne * NQ; f += kThreads * V) {
+        cp_async<16>(dst + f, src + f);
+      }
+      return;
+    }
+  }
+  for (unsigned f = threadIdx.x; f < ne * NQ; f += kThreads) cp_async<sizeof(T)>(dst + f, src + f);
+}
+
+// Stage J for group G on the group's `rows` rows from this thread's rho0:
+// its TR rows are read once each (16-byte loads) and feed the group's
+// chains, their table values constants; output q of a row goes to the
+// next stage's input, or times D (the D stage), or to device memory (the
+// last stage).  Each output is one FMA chain over its K inputs in
+// ascending k, D multiplying the forward sum after it.
+template <typename T, int DIM, int D1, int Q1, int J, int G>
+__device__ __forceinline__ void stage_of(const Table<T, D1 * Q1>& tab, const T* __restrict__ in,
+                                         T* __restrict__ nxt, const T* __restrict__ dbuf,
+                                         T* __restrict__ outc, unsigned rho0, unsigned rows) {
+  using S = StageOf<T, DIM, D1, Q1, J>;
   constexpr bool kFwd = J < DIM;
   constexpr bool kDStage = J == DIM - 1;
   constexpr bool kLast = J == 2 * DIM - 1;
-  constexpr int ND = ipow(D1, DIM);
-  constexpr int IT = cdiv(G.items, kThreads);
-  const T* in = s.buf[J & 1];
-  T* nxt = s.buf[(J + 1) & 1];
-  const T* M = kFwd ? s.B : s.Bt;
+  using N = StageOf<T, DIM, D1, Q1, kLast ? J : J + 1>;
+  using VT = typename Vec16<T>::type;
+  constexpr int V = vlen<T>(), K = S::K, TR = S::TR;
+  constexpr int Q0 = G * S::TQ, NQ = imin(S::TQ, S::Q - Q0);  // this group's outputs
+  constexpr unsigned ND = ipow(D1, DIM), EPB = elems_per_block(DIM, Q1);
+  // a block of outputs apart: the next input's, out's (and D's: R)
+  constexpr unsigned kOut = kLast ? S::R : S::R / S::Bn * N::P;
+  auto out_at = [](unsigned rho) {
+    return kLast ? flat_row(rho, S::R, ND) : out_row(rho, S::R, S::Bn, S::Q, N::P);
+  };
+  auto d_at = [](unsigned rho) { return flat_row(rho, S::R, S::Q * S::R); };
+  const unsigned o0 = out_at(rho0) + Q0 * kOut, d0 = d_at(rho0) + Q0 * S::R;
+  // the rows' offsets (AFF: constants added to row rho0's), and whether
+  // each is one of the group's (a row past them reads row rho0)
+  unsigned ii[TR], oo[TR], dd[TR];
+  bool ok[TR];
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    if (G.items % kThreads != 0 && i >= G.items) break;
-    const int r = i % G.R;
-    const int grp = (i / G.R) % G.NG;
-    const int el = i / (G.R * G.NG);
-    T v[G.K];
-    const T* row = in + (el * G.R + r) * G.P;
+  for (int i = 0; i < TR; ++i) {
+    const unsigned rho = rho0 + i * S::TG;
+    ok[i] = !(EPB > 1 || (i + 1) * S::TG > S::R) || rho < rows;
+    ii[i] = (ok[i] ? rho : rho0) * S::P;
+    oo[i] = S::AFF ? o0 + out_at(i * S::TG) : out_at(rho) + Q0 * kOut;
+    dd[i] = S::AFF ? d0 + d_at(i * S::TG) : d_at(rho) + Q0 * S::R;
+  }
+  T acc[TR][NQ];
 #pragma unroll
-    for (int k = 0; k < G.K; ++k) v[k] = row[k];
+  for (int i = 0; i < TR; ++i) {
 #pragma unroll
-    for (int qq = 0; qq < G.QG; ++qq) {
-      const int q = grp * G.QG + qq;
-      if (G.Q % G.QG != 0 && q >= G.Q) break;
-      const T* m = M + q * G.K;
-      T acc = T(0);
+    for (int qq = 0; qq < NQ; ++qq) acc[i][qq] = T(0);
+  }
 #pragma unroll
-      for (int k = 0; k < G.K; ++k) acc = fmad(m[k], v[k], acc);
-      if constexpr (kDStage) acc *= dv[it][qq];
-      if constexpr (kLast) {
-        if (el < ne) outc[el * ND + q * G.R + r] = acc;
-      } else {
-        nxt[next_index(G, DIM, el, q, r)] = acc;
+  for (int kv = 0; kv < cdiv(K, V); ++kv) {
+    VT x[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) x[i] = reinterpret_cast<const VT*>(in + ii[i])[kv];
+#pragma unroll
+    for (int w = 0; w < V; ++w) {
+      const int k = kv * V + w;
+      if (k < K) {
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+          // B[q][k] forward, B^T[i][k] = B[k][i] on the way back
+          const T b = tab.v[kFwd ? (Q0 + qq) * D1 + k : k * D1 + Q0 + qq];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) acc[i][qq] = fmad(b, part(x[i], w), acc[i][qq]);
+        }
       }
     }
   }
-  // a barrier between stages, none after the last (it writes device memory)
-  if constexpr (!kLast) __syncthreads();
-}
-
-template <typename T, int DIM, int D1, int Q1, int ITD, int QGD, int... J>
-__device__ __forceinline__ void stages(const Smem<T>& s, const T (&dv)[ITD][QGD],
-                                       T* __restrict__ outc, int ne,
-                                       std::integer_sequence<int, J...>) {
-  (stage<T, DIM, D1, Q1, J, ITD, QGD>(s, dv, outc, ne), ...);
-}
-
-template <typename T, int DIM, int D1, int Q1>
-__global__ void __launch_bounds__(kThreads, 2)
-    mass_kernel(const T* __restrict__ u, const T* __restrict__ D, const T* __restrict__ B,
-                T* __restrict__ out, int C, int NE) {
-  constexpr int EPB = elems_per_block(DIM, Q1);
-  constexpr int ND = ipow(D1, DIM), NQ = ipow(Q1, DIM);
-  constexpr int B0 = buf_size(DIM, D1, Q1, EPB, 0), B1 = buf_size(DIM, D1, Q1, EPB, 1);
-  constexpr Geo GD = geo(DIM, D1, Q1, EPB, DIM - 1);
-  constexpr int ITD = cdiv(GD.items, kThreads);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s = carve<T>(smem_raw, B0, B1, D1, Q1);
-  const int64_t e0 = int64_t(blockIdx.x) * EPB;
-  const int ne = static_cast<int>(imin(EPB, static_cast<int>(NE - e0)));
-  load_tables(s, B, D1, Q1);
-  // D of this thread's outputs of the D stage, for every component
-  T dv[ITD][GD.QG];
-  const T* De = D + e0 * NQ;
 #pragma unroll
-  for (int it = 0; it < ITD; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i % GD.R;
-    const int grp = (i / GD.R) % GD.NG;
-    const int el = i / (GD.R * GD.NG);
+  for (int i = 0; i < TR; ++i) {
+    if (!ok[i]) continue;
 #pragma unroll
-    for (int qq = 0; qq < GD.QG; ++qq) {
-      const int q = grp * GD.QG + qq;
-      dv[it][qq] = (i < GD.items && q < GD.Q && el < ne) ? De[el * NQ + q * GD.R + r] : T(0);
+    for (int qq = 0; qq < NQ; ++qq) {
+      T y = acc[i][qq];
+      if constexpr (kDStage) y *= dbuf[dd[i] + qq * S::R];
+      if constexpr (kLast) {
+        outc[oo[i] + qq * kOut] = y;
+      } else {
+        nxt[oo[i] + qq * kOut] = y;
+      }
     }
   }
-  for (int c = 0; c < C; ++c) {
-    const int64_t off = (int64_t(c) * NE + e0) * ND;
-    load_u(s.buf[0], u + off, ND, D1, geo(DIM, D1, Q1, EPB, 0).R, EPB, ne);
-    __syncthreads();
-    stages<T, DIM, D1, Q1>(s, dv, out + off, ne, std::make_integer_sequence<int, 2 * DIM>{});
+}
+
+template <typename T, int DIM, int D1, int Q1, int J, int... G>
+__device__ __forceinline__ void stage_groups(const Table<T, D1 * Q1>& tab,
+                                             const T* __restrict__ in, T* __restrict__ nxt,
+                                             const T* __restrict__ dbuf, T* __restrict__ outc,
+                                             unsigned g, unsigned rho0, unsigned rows,
+                                             std::integer_sequence<int, G...>) {
+  ((g == G ? stage_of<T, DIM, D1, Q1, J, G>(tab, in, nxt, dbuf, outc, rho0, rows) : void()),
+   ...);
+}
+
+// Stage J on the group's ne elements: this thread's group (warp-uniform)
+// and first row, then that group's code.
+template <typename T, int DIM, int D1, int Q1, int J>
+__device__ __forceinline__ void stage(const Table<T, D1 * Q1>& tab, const T* __restrict__ in,
+                                      T* __restrict__ nxt, const T* __restrict__ dbuf,
+                                      T* __restrict__ outc, unsigned ne) {
+  using S = StageOf<T, DIM, D1, Q1, J>;
+  constexpr unsigned EPB = elems_per_block(DIM, Q1);
+  const unsigned t = threadIdx.x;
+  if (S::NG * S::TG < kThreads && t >= S::NG * S::TG) return;
+  const unsigned rho0 = t % S::TG, rows = ne * S::R;
+  if ((EPB > 1 || S::TG > S::R) && rho0 >= rows) return;
+  stage_groups<T, DIM, D1, Q1, J>(tab, in, nxt, dbuf, outc, t / S::TG, rho0, rows,
+                                  std::make_integer_sequence<int, S::NG>{});
+}
+
+// One block per resident slot walks the groups blockIdx.x, blockIdx.x +
+// gridDim.x, ... and their components in turn (a task).  The next task's u
+// is copied in (cp.async) once stage 0 has read the current one, the next
+// group's D once the last component's D stage has: both streams run under
+// the contractions.  Every copy is committed as a group at one of those two
+// points each task (empty groups where there is nothing to copy), so
+// cp.async.wait_group 1 before stage 0 finds this task's u and before the
+// D stage this group's D (in 2D, where the D stage follows stage 0 at once,
+// wait_group 0).  One barrier before each stage.
+template <typename T, int DIM, int D1, int Q1>
+__global__ void __launch_bounds__(kThreads, 2)
+    mass_kernel(const T* __restrict__ u, const T* __restrict__ D, T* __restrict__ out, int C,
+                int NE, int vec, const __grid_constant__ Table<T, D1 * Q1> tab) {
+  using L = LayoutOf<T, DIM, D1, Q1>;
+  constexpr int EPB = elems_per_block(DIM, Q1);
+  constexpr int ND = ipow(D1, DIM), NQ = ipow(Q1, DIM);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  T* const ubuf = sm + L::ubuf;
+  T* const dbuf = sm + L::dbuf;
+  T* const b0 = sm + L::buf0;
+  T* const b1 = sm + L::buf1;
+  const int groups = cdiv(NE, EPB);
+  int grp = blockIdx.x;
+  fetch_u<T, DIM, D1, Q1>(ubuf, u + int64_t(grp) * EPB * ND, imin(EPB, NE - grp * EPB), vec & 1);
+  cp_commit();
+  fetch_d<T, DIM, D1, Q1>(dbuf, D + int64_t(grp) * EPB * NQ, imin(EPB, NE - grp * EPB), vec & 2);
+  cp_commit();
+  for (; grp < groups; grp += gridDim.x) {
+    const int64_t e0 = int64_t(grp) * EPB;
+    const unsigned ne = imin(EPB, NE - grp * EPB);
+    for (int c = 0; c < C; ++c) {
+      const bool lastc = c + 1 == C;
+      const int ng = lastc ? grp + static_cast<int>(gridDim.x) : grp;
+      T* const outc = out + (int64_t(c) * NE + e0) * ND;
+      cp_wait<1>();
+      __syncthreads();
+      stage<T, DIM, D1, Q1, 0>(tab, ubuf, b0, dbuf, outc, ne);
+      if constexpr (DIM == 2) cp_wait<0>();
+      __syncthreads();
+      if (ng < groups) {
+        fetch_u<T, DIM, D1, Q1>(ubuf, u + (int64_t(lastc ? 0 : c + 1) * NE + int64_t(ng) * EPB) * ND,
+                                imin(EPB, NE - ng * EPB), vec & 1);
+      }
+      cp_commit();
+      if constexpr (DIM == 3) {
+        stage<T, DIM, D1, Q1, 1>(tab, b0, b1, dbuf, outc, ne);
+        cp_wait<1>();
+        __syncthreads();
+        stage<T, DIM, D1, Q1, 2>(tab, b1, b0, dbuf, outc, ne);
+      } else {
+        stage<T, DIM, D1, Q1, 1>(tab, b0, b1, dbuf, outc, ne);
+      }
+      __syncthreads();
+      if (lastc && ng < groups) {
+        fetch_d<T, DIM, D1, Q1>(dbuf, D + int64_t(ng) * EPB * NQ, imin(EPB, NE - ng * EPB), vec & 2);
+      }
+      cp_commit();
+      if constexpr (DIM == 3) {
+        stage<T, DIM, D1, Q1, 3>(tab, b0, b1, dbuf, outc, ne);
+        __syncthreads();
+        stage<T, DIM, D1, Q1, 4>(tab, b1, b0, dbuf, outc, ne);
+        __syncthreads();
+        stage<T, DIM, D1, Q1, 5>(tab, b0, b1, dbuf, outc, ne);
+      } else {
+        stage<T, DIM, D1, Q1, 2>(tab, b1, b0, dbuf, outc, ne);
+        __syncthreads();
+        stage<T, DIM, D1, Q1, 3>(tab, b0, b1, dbuf, outc, ne);
+      }
+    }
   }
+  cp_wait<0>();
 }
 
 // --------------------------------------------------- runtime sizes -------
@@ -328,23 +660,49 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ------------------------------------------------------------ launch -----
+// The blocks of a compiled instance the card holds at once (its grid: every
+// block walks groups until none is left), once per device: host calls cost
+// microseconds on a host-bound path.  Opts in to the instance's shared
+// memory on the way.
 template <typename T, int DIM, int D1, int Q1>
-cudaError_t launch_fixed(const T* u, const T* D, const T* B, T* out, int C, int NE, int device,
-                         cudaStream_t stream) {
-  constexpr int EPB = elems_per_block(DIM, Q1);
-  constexpr int64_t kSmem = smem_bytes(DIM, D1, Q1, sizeof(T));
-  // once per device: host calls cost microseconds on a host-bound path
-  static bool ready[kMaxDevices] = {};
-  if (kSmem > 48 * 1024 && !ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mass_kernel<T, DIM, D1, Q1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
+cudaError_t grid_of(int device, int* grid) {
+  constexpr int64_t kSmem = int64_t(LayoutOf<T, DIM, D1, Q1>::total) * int64_t(sizeof(T));
+  static int slots[kMaxDevices] = {};
+  if (slots[device] == 0) {
+    cudaError_t err = cudaSuccess;
+    if (kSmem > 48 * 1024) {
+      err = cudaFuncSetAttribute(mass_kernel<T, DIM, D1, Q1>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmem));
+      if (err != cudaSuccess) return err;
+    }
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mass_kernel<T, DIM, D1, Q1>,
+                                                        kThreads, static_cast<size_t>(kSmem));
     if (err != cudaSuccess) return err;
-    ready[device] = true;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    slots[device] = imax(1, per_sm * sms);
   }
-  const unsigned blocks = static_cast<unsigned>(cdiv(NE, EPB));
+  *grid = slots[device];
+  return cudaSuccess;
+}
+
+template <typename T, int DIM, int D1, int Q1>
+cudaError_t launch_fixed(const T* u, const T* D, const T* table, T* out, int C, int NE,
+                         int device, cudaStream_t stream) {
+  constexpr int EPB = elems_per_block(DIM, Q1);
+  constexpr int64_t kSmem = int64_t(LayoutOf<T, DIM, D1, Q1>::total) * int64_t(sizeof(T));
+  int grid = 0;
+  const cudaError_t err = grid_of<T, DIM, D1, Q1>(device, &grid);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(imin(cdiv(NE, EPB), grid));
+  const int vec = int(reinterpret_cast<uintptr_t>(u) % 16 == 0) |
+                  int(reinterpret_cast<uintptr_t>(D) % 16 == 0) << 1;
+  Table<T, D1 * Q1> tab;
+  for (int i = 0; i < D1 * Q1; ++i) tab.v[i] = table[i];
   mass_kernel<T, DIM, D1, Q1><<<blocks, kThreads, static_cast<size_t>(kSmem), stream>>>(
-      u, D, B, out, C, NE);
+      u, D, out, C, NE, vec, tab);
   return cudaGetLastError();
 }
 
@@ -370,21 +728,52 @@ cudaError_t launch_rt(const T* u, const T* D, const T* B, T* out, int C, int NE,
   X(1, 2) X(2, 2) X(2, 4) X(3, 4) X(3, 6) X(4, 6) X(4, 8) X(5, 8) X(6, 12) X(7, 12) X(8, 16) X(9, 16)
 
 template <typename T>
-cudaError_t dispatch(const void* u, const void* D, const void* B, void* out, int C, int NE,
-                     int dim, int d1, int q1, int64_t smem, int limit, int device, bool rt,
-                     cudaStream_t stream) {
+cudaError_t dispatch(const void* u, const void* D, const void* B, const void* table, void* out,
+                     int C, int NE, int dim, int d1, int q1, int64_t smem, int limit, int device,
+                     bool rt, cudaStream_t stream) {
   const T* uu = static_cast<const T*>(u);
   const T* DD = static_cast<const T*>(D);
   const T* BB = static_cast<const T*>(B);
+  const T* tt = static_cast<const T*>(table);
   T* oo = static_cast<T*>(out);
-#define MASS_CASE(d1_, q1_)                                                              \
-  if (!rt && d1 == d1_ && q1 == q1_) {                                                   \
-    if (dim == 2) return launch_fixed<T, 2, d1_, q1_>(uu, DD, BB, oo, C, NE, device, stream); \
-    if (dim == 3) return launch_fixed<T, 3, d1_, q1_>(uu, DD, BB, oo, C, NE, device, stream); \
+#define MASS_CASE(d1_, q1_)                                                                   \
+  if (!rt && d1 == d1_ && q1 == q1_) {                                                        \
+    if (tt == nullptr) return cudaErrorInvalidValue;                                          \
+    if (dim == 2) return launch_fixed<T, 2, d1_, q1_>(uu, DD, tt, oo, C, NE, device, stream); \
+    if (dim == 3) return launch_fixed<T, 3, d1_, q1_>(uu, DD, tt, oo, C, NE, device, stream); \
   }
   MASS_SHAPES(MASS_CASE)
 #undef MASS_CASE
   return launch_rt<T>(uu, DD, BB, oo, C, NE, dim, d1, q1, smem, limit, device, stream);
+}
+
+// the shared memory a block of the compiled instance for (dim, d1, q1)
+// takes, or -1 where none is compiled
+template <typename T>
+int64_t fixed_smem(int dim, int d1, int q1) {
+#define MASS_BYTES(d1_, q1_)                                                             \
+  if (d1 == d1_ && q1 == q1_) {                                                          \
+    if (dim == 2) return int64_t(LayoutOf<T, 2, d1_, q1_>::total) * int64_t(sizeof(T));  \
+    if (dim == 3) return int64_t(LayoutOf<T, 3, d1_, q1_>::total) * int64_t(sizeof(T));  \
+  }
+  MASS_SHAPES(MASS_BYTES)
+#undef MASS_BYTES
+  return -1;
+}
+
+// the grid of the compiled instance for (dim, d1, q1) on `device`, or 0
+// where none is compiled
+template <typename T>
+cudaError_t fixed_grid(int device, int dim, int d1, int q1, int* grid) {
+  *grid = 0;
+#define MASS_GRID(d1_, q1_)                                                       \
+  if (d1 == d1_ && q1 == q1_) {                                                   \
+    if (dim == 2) return grid_of<T, 2, d1_, q1_>(device, grid);                    \
+    if (dim == 3) return grid_of<T, 3, d1_, q1_>(device, grid);                    \
+  }
+  MASS_SHAPES(MASS_GRID)
+#undef MASS_GRID
+  return cudaSuccess;
 }
 
 int smem_limit(int device, int* limit) {
@@ -402,11 +791,13 @@ int smem_limit(int device, int* limit) {
 
 // Plain C interface for ctypes.
 //
-// mass_smem_bytes: the dynamic shared memory a block of the kernel takes
-// for `dim` and the table (q1, d1), in f32 (dtype 0) or f64 (dtype 1).
+// mass_smem_bytes: the dynamic shared memory a block takes for `dim` and
+// the table (q1, d1), in f32 (dtype 0) or f64 (dtype 1): the compiled
+// instance's where one is compiled, else the runtime-size kernel's.
 extern "C" int64_t mass_smem_bytes(int dtype, int dim, int d1, int q1) {
   if (dim < 1 || dim > 3 || d1 < 1 || q1 < 1 || (dtype != 0 && dtype != 1)) return -1;
-  return smem_bytes(dim, d1, q1, dtype ? 8 : 4);
+  const int64_t fixed = dtype ? fixed_smem<double>(dim, d1, q1) : fixed_smem<float>(dim, d1, q1);
+  return fixed > 0 ? fixed : smem_bytes(dim, d1, q1, dtype ? 8 : 4);
 }
 
 // mass_smem_limit: the shared memory a block may opt in to on `device`
@@ -417,9 +808,26 @@ extern "C" int64_t mass_smem_limit(int device) {
   return smem_limit(device, &limit) == 0 ? limit : -1;
 }
 
+// mass_grid: the blocks the compiled instance for (dim, d1, q1) launches
+// at most on `device` (each walks groups of elements until none is left),
+// 0 where none is compiled, or a negative CUDA error.
+extern "C" int64_t mass_grid(int dtype, int device, int dim, int d1, int q1) {
+  if (device < 0 || device >= kMaxDevices || (dtype != 0 && dtype != 1)) return -1;
+  cudaError_t err = cudaSetDevice(device);
+  int grid = 0;
+  if (err == cudaSuccess) {
+    err = dtype ? fixed_grid<double>(device, dim, d1, q1, &grid)
+                : fixed_grid<float>(device, dim, d1, q1, &grid);
+  }
+  return err == cudaSuccess ? grid : -static_cast<int64_t>(err);
+}
+
 // mass_launch: out = B^T (D * (B u)) per element and component.  u, out:
 // (C, NE, d1^dim), D: (NE, q1^dim), B: (q1, d1), contiguous, on `device`,
-// f32 (dtype 0) or f64 (dtype 1); 1 <= dim <= 3.  Launches on `stream`
+// f32 (dtype 0) or f64 (dtype 1); 1 <= dim <= 3; `table` the values of B
+// in host memory (read by the compiled instances, which take the table as
+// a kernel parameter; may be null with rt or at a size none is compiled
+// for, and is cudaErrorInvalidValue where one runs).  Launches on `stream`
 // (PyTorch's current stream), allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
 // arguments outside those ranges, or kTooLarge (20001) when the block's
@@ -427,8 +835,8 @@ extern "C" int64_t mass_smem_limit(int device) {
 // the runtime-size kernel at every size, a compiled one's too (to time the
 // two against each other).
 extern "C" int mass_launch(int dtype, int device, const void* u, const void* D, const void* B,
-                           void* out, int64_t C, int64_t NE, int dim, int d1, int q1, int rt,
-                           void* stream) {
+                           const void* table, void* out, int64_t C, int64_t NE, int dim, int d1,
+                           int q1, int rt, void* stream) {
   if (dim < 1 || dim > 3 || d1 < 1 || q1 < 1 || (dtype != 0 && dtype != 1) || C < 0 || NE < 0 ||
       C > (int64_t(1) << 30) || NE > (int64_t(1) << 30) || d1 > 64 || q1 > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -439,12 +847,15 @@ extern "C" int mass_launch(int dtype, int device, const void* u, const void* D, 
   int limit = 0;
   const int lerr = smem_limit(device, &limit);
   if (lerr != 0) return lerr;
-  const int64_t smem = mass_smem_bytes(dtype, dim, d1, q1);
+  const int64_t smem =
+      rt ? smem_bytes(dim, d1, q1, dtype ? 8 : 4) : mass_smem_bytes(dtype, dim, d1, q1);
   if (smem > limit) return kTooLarge;
   if (C == 0 || NE == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int Ci = static_cast<int>(C), NEi = static_cast<int>(NE);
-  err = dtype ? dispatch<double>(u, D, B, out, Ci, NEi, dim, d1, q1, smem, limit, device, rt, s)
-              : dispatch<float>(u, D, B, out, Ci, NEi, dim, d1, q1, smem, limit, device, rt, s);
+  err = dtype ? dispatch<double>(u, D, B, table, out, Ci, NEi, dim, d1, q1, smem, limit, device,
+                                 rt, s)
+              : dispatch<float>(u, D, B, table, out, Ci, NEi, dim, d1, q1, smem, limit, device, rt,
+                                s);
   return static_cast<int>(err);
 }

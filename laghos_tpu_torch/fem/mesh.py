@@ -60,6 +60,32 @@ class SimplexMeshError(NotImplementedError):
     """`load_mfem_mesh` was given a triangle or tetrahedron mesh."""
 
 
+def _packed_columns(keys: np.ndarray) -> np.ndarray:
+    """The rows of `keys` with runs of adjacent columns packed into one
+    int64 each (mixed radix over the columns' ranges, the first the most
+    significant, every packed value below 2^62): the same lexicographic
+    order of rows and the same equal rows on fewer columns, for a faster
+    sort."""
+    lo, hi = keys.min(axis=0), keys.max(axis=0)
+    span = [int(h) - int(l) + 1 for l, h in zip(lo, hi)]
+    cols, j = [], 0
+    while j < keys.shape[1]:
+        if span[j] >= 2**62:            # as it is: no room to shift it
+            cols.append(keys[:, j])
+            j += 1
+            continue
+        k, width = j + 1, span[j]
+        while k < keys.shape[1] and width * span[k] < 2**62:
+            width *= span[k]
+            k += 1
+        col = keys[:, j] - lo[j]
+        for m in range(j + 1, k):
+            col = col * span[m] + (keys[:, m] - lo[m])
+        cols.append(col)
+        j = k
+    return np.stack(cols, axis=1)
+
+
 def unify_rows(keys: np.ndarray):
     """Deduplicate rows of an int64 matrix.
 
@@ -70,6 +96,7 @@ def unify_rows(keys: np.ndarray):
     keys = np.ascontiguousarray(keys, dtype=np.int64)
     if keys.shape[0] == 0:
         return 0, np.zeros(0, np.int32), np.zeros(0, np.int64)
+    keys = _packed_columns(keys)
     # a stable sort on the columns, the first the primary key: the row
     # order and first occurrences of np.unique(axis=0), without its
     # comparisons of whole rows as records (seconds at millions of rows)

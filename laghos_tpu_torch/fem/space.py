@@ -40,16 +40,19 @@ class H1Space:
     ndof: int                 # number of global scalar dofs
     gather: np.ndarray        # (NE, (p+1)^dim) int32: local lex -> global
     node_coords: np.ndarray   # (ndof, dim) positions of the GLobatto nodes
-    dof_attrs: list           # per-dof set of boundary attrs it lies on
+    # the (dof, boundary attribute) pairs of the dofs on the boundary, each
+    # once: bdr_dofs[i] lies on a face of attribute bdr_attrs[i]
+    bdr_dofs: np.ndarray      # (npairs,) int64
+    bdr_attrs: np.ndarray     # (npairs,) int64
 
     def ess_mask(self, component: int) -> np.ndarray:
         """True where velocity component `component` is constrained.
 
         Boundary attribute d+1 fixes component d (laghos.cpp:499-515).
         """
-        attr = component + 1
-        return np.fromiter((attr in a for a in self.dof_attrs), dtype=bool,
-                           count=self.ndof)
+        mask = np.zeros(self.ndof, dtype=bool)
+        mask[self.bdr_dofs[self.bdr_attrs == component + 1]] = True
+        return mask
 
 
 def build_h1_space(mesh: Mesh, p: int) -> H1Space:
@@ -103,27 +106,41 @@ def build_h1_space(mesh: Mesh, p: int) -> H1Space:
     first[flat_g[::-1]] = np.arange(flat_g.size - 1, -1, -1)
     node_coords = flat_p[first]
 
-    # Boundary attributes per dof: a dof lies on a boundary face iff its
-    # vertex support is a subset of the face's vertex set.  Only dofs whose
-    # support vertices are all boundary vertices can, so only those are
-    # tested (the interior of a high-order space is most of its dofs).
-    vert_faces: dict[int, list[int]] = {}
-    face_sets = []
-    for b in range(mesh.bdr_verts.shape[0]):
-        fs = frozenset(int(v) for v in mesh.bdr_verts[b])
-        face_sets.append(fs)
-        for v in fs:
-            vert_faces.setdefault(v, []).append(b)
-    dof_attrs: list[set] = [set() for _ in range(ndof)]
-    supp_v = uniq[:, :ncor]
-    bdr_vert = np.zeros(mesh.verts.shape[0] + 1, dtype=bool)
-    bdr_vert[np.asarray(mesh.bdr_verts, dtype=np.int64).reshape(-1)] = True
-    bdr_vert[-1] = True                          # the -1 padding
-    for g in np.flatnonzero(bdr_vert[supp_v].all(axis=1)).tolist():
-        verts_g = [int(v) for v in supp_v[g] if v >= 0]
-        cand = vert_faces.get(verts_g[0], [])
-        for b in cand:
-            if all(v in face_sets[b] for v in verts_g):
-                dof_attrs[g].add(int(mesh.bdr_attr[b]))
+    bdr_dofs, bdr_attrs = _boundary_pairs(mesh, uniq[:, :ncor])
+    return H1Space(mesh, p, ndof, gather, node_coords, bdr_dofs, bdr_attrs)
 
-    return H1Space(mesh, p, ndof, gather, node_coords, dof_attrs)
+
+def _boundary_pairs(mesh: Mesh, supp_v: np.ndarray):
+    """The (dof, attribute) pairs of the boundary faces each dof lies on,
+    each once, from the dofs' support vertices `supp_v` (ndof, 2^dim;
+    ascending, -1 padding first): a dof lies on a face iff its support is
+    a subset of the face's vertices.  Only dofs whose support vertices are
+    all boundary vertices can (the interior of a high-order space is most
+    of its dofs), and only the faces at their first support vertex are
+    tested."""
+    fv = np.asarray(mesh.bdr_verts, dtype=np.int64).reshape(
+        mesh.bdr_verts.shape[0], -1)                   # (nbdr, nfv)
+    bdr_vert = np.zeros(mesh.verts.shape[0] + 1, dtype=bool)
+    bdr_vert[fv.reshape(-1)] = True
+    bdr_vert[-1] = True                          # the -1 padding
+    cand = np.flatnonzero(bdr_vert[supp_v].all(axis=1))
+    sv = supp_v[cand]
+    v0 = sv[np.arange(cand.size), (sv >= 0).argmax(axis=1)]
+    # the faces at each vertex: (vertex, face) pairs sorted by vertex
+    pv = fv.reshape(-1)
+    pf = np.repeat(np.arange(fv.shape[0]), fv.shape[1])
+    order = np.argsort(pv, kind="stable")
+    pv, pf = pv[order], pf[order]
+    start = np.searchsorted(pv, v0, side="left")
+    count = np.searchsorted(pv, v0, side="right") - start
+    row = np.repeat(np.arange(cand.size), count)
+    face = pf[np.repeat(start - np.cumsum(count) + count, count)
+              + np.arange(row.size)]
+    s = sv[row]
+    inside = ((s[:, :, None] == fv[face][:, None, :]).any(axis=2)
+              | (s < 0)).all(axis=1)
+    pairs = np.stack([cand[row[inside]],
+                      np.asarray(mesh.bdr_attr, dtype=np.int64)[face[inside]]],
+                     axis=1)
+    pairs = np.unique(pairs, axis=0)
+    return pairs[:, 0].copy(), pairs[:, 1].copy()

@@ -26,7 +26,9 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
+import weakref
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -70,10 +72,19 @@ def _run_all(cmds):
     return "".join(outs), failed
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Build:
     """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
     into build/liblaghos_<hash>.so, once per source version; return where
-    it is."""
+    it is.  Threads of one process build once (a second caller waits for
+    the first)."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Build:
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -108,12 +119,13 @@ def build() -> Build:
     return Build(so, out, seconds)
 
 
-def sass_instructions(path, opcodes=None) -> dict:
+def sass_instructions(path, opcodes=None, per_opcode=False) -> dict:
     """{mangled kernel name: static SASS instructions, NOPs left out} of the
     library at `path`, read with `cuobjdump -sass` from nvcc's toolkit;
     with `opcodes` (a set of opcode names such as {"DFMA", "DMUL"}) only
-    the instructions whose opcode, up to its first ".", is one of them."""
-    return count_sass(_sass_text(str(path)), opcodes)
+    the instructions whose opcode, up to its first ".", is one of them,
+    and with `per_opcode` their counts {opcode: n} for each kernel."""
+    return count_sass(_sass_text(str(path)), opcodes, per_opcode)
 
 
 @functools.lru_cache(maxsize=4)
@@ -124,20 +136,27 @@ def _sass_text(path):
                           text=True, check=True, timeout=300).stdout
 
 
-def count_sass(text, opcodes=None) -> dict:
+def count_sass(text, opcodes=None, per_opcode=False) -> dict:
     """The counts of `sass_instructions` from the text of `cuobjdump
-    -sass`."""
+    -sass`; instructions predicated on "@!PT" (never run) are left out."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            out[cur] = 0
+            out[cur] = dict.fromkeys(opcodes, 0) if per_opcode else 0
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                      line)
-        if m and cur is not None and not m.group(1).startswith("NOP") and (
-                opcodes is None or m.group(1).split(".")[0] in opcodes):
+        # "@!PT" never runs (placeholders ptxas leaves beside cp.async)
+        if (m is None or cur is None or m.group(2).startswith("NOP")
+                or (m.group(1) or "").strip() == "@!PT"):
+            continue
+        op = m.group(2).split(".")[0]
+        if per_opcode:
+            if op in out[cur]:
+                out[cur][op] += 1
+        elif opcodes is None or op in opcodes:
             out[cur] += 1
     return out
 
@@ -162,7 +181,7 @@ def library():
         ctypes.c_int64, ctypes.c_int, p]
     lib.split_launch.restype = ctypes.c_int
     lib.mass_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, p, p, p, p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, p, p, p, p, p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, p]
     lib.mass_launch.restype = ctypes.c_int
@@ -170,6 +189,8 @@ def library():
     lib.mass_smem_bytes.restype = ctypes.c_int64
     lib.mass_smem_limit.argtypes = [ctypes.c_int]
     lib.mass_smem_limit.restype = ctypes.c_int64
+    lib.mass_grid.argtypes = [ctypes.c_int] * 5
+    lib.mass_grid.restype = ctypes.c_int64
     lib.qphys_error_string.argtypes = [ctypes.c_int]
     lib.qphys_error_string.restype = ctypes.c_char_p
     return lib, b
@@ -225,12 +246,34 @@ def launch_split(A, D, scale, *, R1, k, R2, kp, n_slices):
 MASS_TOO_LARGE = 20001
 
 
+# tensor id -> (weak reference, version, values on the host)
+_HOST_TABLES = {}
+
+
+def host_table(B):
+    """The values of the CUDA tensor B on the host, copied (one sync) the
+    first time this tensor object is seen at its current version (an
+    in-place change bumps it) and kept while the tensor lives: the compiled
+    mass kernels take their 1D table as a kernel parameter."""
+    if B.is_inference():        # no version counter: copied every call
+        return B.detach().to("cpu", copy=True).contiguous()
+    key = id(B)
+    hit = _HOST_TABLES.get(key)
+    if hit is not None and hit[0]() is B and hit[1] == B._version:
+        return hit[2]
+    host = B.detach().to("cpu", copy=True).contiguous()
+    _HOST_TABLES[key] = (weakref.ref(B, lambda _, k=key: _HOST_TABLES.pop(k, None)),
+                         B._version, host)
+    return host
+
+
 def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
     """Launch csrc/mass.cu on PyTorch's current stream: out = B^T (D * (B u))
     per element and component, u and out (C, NE, nd1^dim), D (NE,
     nq1^dim), B (nq1, nd1), contiguous CUDA tensors of one dtype (f32 or
-    f64) already checked and allocated by the caller (ops/mass.mass_apply_e).
-    `rt` runs the runtime-size kernel even where a compiled instance exists
+    f64) already checked and allocated by the caller (ops/mass.mass_apply_e);
+    B's values also go to the kernel from the host (`host_table`).  `rt`
+    runs the runtime-size kernel even where a compiled instance exists
     (chip_smoke.py times the two).  Raises on a refused launch, and names
     the shared-memory limit when the size needs more than a block may
     have."""
@@ -240,9 +283,10 @@ def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
     code = {torch.float32: 0, torch.float64: 1}[u.dtype]
     dev = u.device.index
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    table = host_table(B)
     err = lib.mass_launch(code, dev, u.data_ptr(), D.data_ptr(), B.data_ptr(),
-                          out.data_ptr(), int(C), int(NE), int(dim), int(nd1),
-                          int(nq1), int(rt), stream)
+                          table.data_ptr(), out.data_ptr(), int(C), int(NE),
+                          int(dim), int(nd1), int(nq1), int(rt), stream)
     if err == MASS_TOO_LARGE:
         need = lib.mass_smem_bytes(code, int(dim), int(nd1), int(nq1))
         limit = lib.mass_smem_limit(dev)
@@ -253,3 +297,19 @@ def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
     if err != 0:
         msg = lib.qphys_error_string(err).decode()
         raise RuntimeError(f"mass kernel launch failed: {msg} ({err})")
+
+
+def mass_grid(dtype, device, *, dim, nd1, nq1):
+    """The blocks csrc/mass.cu's compiled instance for (dim, nd1, nq1)
+    launches at most on the card `device` (each walks groups of elements
+    until none is left), or 0 where no instance is compiled (the
+    runtime-size kernel: a block a group).  Raises on a CUDA error."""
+    import torch
+
+    lib, _ = library()
+    code = {torch.float32: 0, torch.float64: 1}[dtype]
+    grid = lib.mass_grid(code, int(device), int(dim), int(nd1), int(nq1))
+    if grid < 0:
+        msg = lib.qphys_error_string(int(-grid)).decode()
+        raise RuntimeError(f"mass_grid failed: {msg} ({-grid})")
+    return int(grid)

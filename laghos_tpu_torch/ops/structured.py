@@ -50,8 +50,7 @@ def renumber_space_to_raster(space, sm: StructMaps) -> StructMaps:
     nc = np.empty_like(space.node_coords)
     nc[inv] = space.node_coords
     space.node_coords = nc
-    old_attrs = space.dof_attrs
-    space.dof_attrs = [old_attrs[old] for old in sm.perm.tolist()]
+    space.bdr_dofs = inv[space.bdr_dofs].astype(np.int64)
     ident = np.arange(space.ndof, dtype=np.int32)
     return StructMaps(dims=sm.dims, p=sm.p, perm=ident, inv=ident,
                       e_mesh_at_raster=sm.e_mesh_at_raster,

@@ -30,6 +30,7 @@ from . import problems
 from .device import setup
 from .fem import simplex as fsx
 from .fem import simplex_mesh as fsm
+from .fem.batched_la import det_inv
 from .fem.quadrature import default_rule_order
 from .hydro import _BLAST_POSITION
 from .ops import mass as mop
@@ -98,8 +99,7 @@ class SimplexHydro:
         x0_l = x0.T
         x0_e = x0_l[:, sp["gather"]].transpose(1, 0, 2)  # (NE, dim, nd)
         J0 = np.einsum("qib,eai->eqab", Gh, x0_e)
-        detJ0 = np.linalg.det(J0)
-        Jac0inv = np.linalg.inv(J0)
+        detJ0, Jac0inv = det_inv(J0)
         if pb == 1 and opt.blast_energy > 0.0:
             # Sedov point blast, the simplex analog of MFEM's
             # ProjectDeltaCoefficient (laghos.cpp:597-616): a nodal delta

@@ -376,3 +376,40 @@ def test_count_sass_filters_opcodes():
     assert kernels.count_sass(text, fp64) == {
         "_Z12qphys_kernelIdLi1ELb1ELb0EEv4ArgsIdE": 3,
         "_Z12split_kernelv": 0}
+
+
+def test_count_sass_per_opcode():
+    """`kernels.count_sass(per_opcode=True)`, as phase 2 of chip_smoke.py
+    reads the mass kernel's instances: each listed opcode counted apart
+    (its suffixes and predicates folded in), per function; LDSM is not LDS,
+    LDGDEPBAR not LDGSTS, and an instruction on "@!PT" (never run) is not
+    counted."""
+    text = """
+        Function : _ZN11mass_kernelIdLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   LDS.64 R8, [R3+0x50] ;
+        /*0020*/               @P0 LDS R9, [R3] ;
+        /*0030*/                   LDSM.16.M88.4 R12, [R3] ;
+        /*0040*/                   DFMA R10, R4, R6, RZ ;
+        /*0050*/                   DFMA R10, R4, R8, R10 ;
+        /*0060*/                   DMUL R10, R10, R8 ;
+        /*0070*/                   STS.64 [R5+0x1040], R10 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/                   LDGSTS.E.BYPASS.128 [R6], desc[UR4][R14.64] ;
+        /*00a0*/                   LDGDEPBAR ;
+        /*00b0*/                   NOP ;
+        /*00c0*/              @!PT LDS RZ, [RZ] ;
+        Function : _ZN11mass_kernelIfLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii
+        /*0000*/                   FFMA R3, R5, R7, R9 ;
+        /*0010*/                   EXIT ;
+    """
+    ops = ("LDS", "STS", "DFMA", "FFMA", "BAR", "LDGSTS")
+    got = kernels.count_sass(text, ops, per_opcode=True)
+    assert got == {
+        "_ZN11mass_kernelIdLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii": dict(
+            LDS=3, STS=1, DFMA=2, FFMA=0, BAR=1, LDGSTS=1),
+        "_ZN11mass_kernelIfLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii": dict(
+            LDS=0, STS=0, DFMA=0, FFMA=1, BAR=0, LDGSTS=0)}
+    assert kernels.count_sass(text) == {
+        "_ZN11mass_kernelIdLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii": 11,
+        "_ZN11mass_kernelIfLi3ELi8ELi16EEEvPKT_S3_S3_PS1_iii": 2}

@@ -588,18 +588,43 @@ def _mass_operands(dim, d1, q1, C, NE, dtype, dev, seed=0):
             t(rng.standard_normal((q1, d1))))
 
 
+# NE of each case, for elements groups of `epb` (a block's group) and a
+# compiled instance's grid of `grid` blocks, each walking groups until none
+# is left: two groups and a ragged one; one element; fewer groups than
+# blocks; three groups a block and a ragged remainder; Q8-Q7's NE
+MASS_NE = {"ragged": lambda epb, grid: 2 * epb + 3,
+           "one": lambda epb, grid: 1,
+           "below": lambda epb, grid: (grid // 2) * epb + 1,
+           "walk": lambda epb, grid: 3 * grid * epb + epb // 2 + 1,
+           "q8": lambda epb, grid: 4096}
+MASS_NE_CASES = [(dim, d1, q1, ne) for dim, d1, q1 in MASS_CASES
+                 for ne in (("ragged", "one", "below", "walk")
+                            if (d1, q1) in MASS_COMPILED and dim > 1
+                            else ("ragged", "one"))
+                 + (("q8",) if (dim, d1, q1) == (3, 8, 16) else ())]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("C", [1, 3])
-@pytest.mark.parametrize("dim,d1,q1", MASS_CASES,
-                         ids=[f"{d}d-{a}-{b}" for d, a, b in MASS_CASES])
-def test_mass_kernel_matches_plain(dim, d1, q1, C, dtype, tol):
+@pytest.mark.parametrize("dim,d1,q1,ne", MASS_NE_CASES,
+                         ids=[f"{d}d-{a}-{b}-{n}"
+                              for d, a, b, n in MASS_NE_CASES])
+def test_mass_kernel_matches_plain(dim, d1, q1, ne, C, dtype, tol):
     """The kernel against its plain twin at every compiled size and at
-    runtime sizes, on NE values that leave a ragged last block, relative
-    to max|twin|; a second launch gives the same bits."""
+    runtime sizes, relative to max|twin|, on NE values that leave a ragged
+    last group, and for the compiled instances (persistent blocks that
+    copy the next group in while the current one runs) on one element,
+    on fewer groups than blocks and on several groups a block; a second
+    launch gives the same bits."""
+    from laghos_tpu_torch.ops import kernels
+
     dev = _card()
-    NE = 2 * max(1, 2048 // q1**dim) + 3      # two blocks and a ragged one
+    epb = max(1, 2048 // q1**dim)
+    grid = kernels.mass_grid(dtype, dev.index or 0, dim=dim, nd1=d1, nq1=q1)
+    assert (grid > 0) == ((d1, q1) in MASS_COMPILED and dim > 1)
+    NE = MASS_NE[ne](epb, grid)
     u, D, B = _mass_operands(dim, d1, q1, C, NE, dtype, dev)
     before = tmass.mass_apply_e.launches
     y = tmass.mass_apply_e(u, D, B, dim)

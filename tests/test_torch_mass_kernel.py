@@ -99,3 +99,26 @@ def test_mass_apply_refuses_mismatched_operands():
     with pytest.raises(ValueError, match="dim must be"):
         tmass.mass_apply_e(u, D, B, 4)
     assert tmass.mass_apply_e.launches == before
+
+
+def test_host_table_is_cached_per_tensor_and_version():
+    """`kernels.host_table`, the 1D table the compiled mass kernels take as
+    a kernel parameter: the tensor's values, copied once per tensor object
+    and version (a second call returns the same copy), copied again after
+    an in-place change, and forgotten when the tensor dies."""
+    from laghos_tpu_torch.ops import kernels
+
+    B = torch.tensor(np.random.default_rng(3).standard_normal((16, 9)))
+    first = kernels.host_table(B)
+    assert torch.equal(first, B) and first.is_contiguous()
+    assert kernels.host_table(B) is first
+    B.mul_(2.0)
+    again = kernels.host_table(B)
+    assert again is not first and torch.equal(again, B)
+    assert torch.equal(first * 2.0, B)          # a copy, not a view of B
+    key = id(B)
+    del B
+    assert key not in kernels._HOST_TABLES
+    with torch.inference_mode():
+        Bi = torch.ones((4, 2))
+    assert torch.equal(kernels.host_table(Bi), Bi)

@@ -80,6 +80,72 @@ def test_gather_and_masks_bitwise(dim, p):
         np.testing.assert_array_equal(st.ess_mask(c), sj.ess_mask(c))
 
 
+@pytest.mark.parametrize("name,p", [("box01_hex", 2), ("rt2D", 3),
+                                    ("square_gresho", 4),
+                                    ("rectangle01_quad", 8)])
+def test_gather_and_masks_bitwise_other_meshes(name, p):
+    """The gather map and the essential masks (the boundary attributes of
+    each dof) on meshes with other boundary attributes and orders."""
+    mt, mj = tdata.get_mesh(name), jdata.get_mesh(name)
+    st, sj = tspace.build_h1_space(mt, p), jspace.build_h1_space(mj, p)
+    assert st.ndof == sj.ndof
+    np.testing.assert_array_equal(st.gather, sj.gather)
+    for c in range(mt.dim):
+        np.testing.assert_array_equal(st.ess_mask(c), sj.ess_mask(c))
+
+
+@pytest.mark.parametrize("shape,lo,hi", [((3000, 16), -1, 6),
+                                         ((2000, 3), -2**62, 2**62),
+                                         ((800, 4), -2**63, 2**63 - 1),
+                                         ((1500, 70), 0, 2)])
+def test_unify_rows_is_the_sorted_unique(shape, lo, hi):
+    """unify_rows against np.unique(axis=0): the same ids in row order and
+    first occurrences, packed columns or not (wide ranges stay as they
+    are)."""
+    rng = np.random.default_rng(0)
+    keys = rng.integers(lo, hi, size=shape, dtype=np.int64)
+    keys = np.concatenate([keys, keys[::3]])
+    n, inverse, first = tmesh.unify_rows(keys)
+    uniq, ref_first, ref_inverse = np.unique(keys, axis=0,
+                                             return_index=True,
+                                             return_inverse=True)
+    assert n == uniq.shape[0]
+    np.testing.assert_array_equal(inverse, ref_inverse.reshape(-1))
+    np.testing.assert_array_equal(first, ref_first)
+
+
+@pytest.mark.parametrize("nq,n", [(4096, 512), (729, 216), (64, 8)])
+def test_weighted_gram_bitwise_one_einsum(nq, n):
+    """The threaded Gram of the Sedov delta's normalization: the bits of
+    one np.einsum call."""
+    from laghos_tpu_torch.hydro import _weighted_gram
+
+    rng = np.random.default_rng(1)
+    B, w = rng.normal(size=(nq, n)), rng.normal(size=nq)
+    np.testing.assert_array_equal(_weighted_gram(B, w),
+                                  np.einsum("qi,qj,q->ij", B, B, w))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_det_inv_bitwise_numpy(dtype):
+    """The t=0 Jacobians' determinants and inverses over worker processes
+    (a batch above MIN_WORKER_BATCH): numpy's bits, in J's precision, and
+    numpy's LinAlgError on a singular matrix."""
+    from laghos_tpu_torch.fem import batched_la
+
+    rng = np.random.default_rng(2)
+    n = batched_la.MIN_WORKER_BATCH + 12345
+    J = (rng.normal(size=(5, n // 5, 3, 3)) + 2 * np.eye(3)).astype(dtype)
+    det, inv = batched_la.det_inv(J)
+    want = J
+    assert det.dtype == inv.dtype == dtype
+    np.testing.assert_array_equal(det, np.linalg.det(want))
+    np.testing.assert_array_equal(inv, np.linalg.inv(want))
+    J[2, 7] = 0.0
+    with pytest.raises(np.linalg.LinAlgError):
+        batched_la.det_inv(J)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
