@@ -7,11 +7,12 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
 2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu,
-   csrc/mass.cu) from this checkout, one nvcc per source in parallel, on
-   the host's cores while phase 15 (which launches none) runs on the card,
-   with ptxas's registers and spills and, for the mass kernel's Q8-Q7
-   instances, their static SASS counts of shared-memory loads and stores,
-   FMAs, barriers, cp.async copies and uniform constant loads;
+   csrc/mass.cu, csrc/lattice_mass.cu) from this checkout, one nvcc per
+   source in parallel, on the host's cores while phase 15 (which launches
+   none) runs on the card, with ptxas's registers and spills and, for the
+   mass kernel's and the lattice mass kernel's Q8-Q7 instances, their
+   static SASS counts of shared-memory loads and stores, FMAs, barriers,
+   cp.async copies and uniform constant loads;
 3. each kernel instance against its plain PyTorch version on the card, f64
    and f32, with inverted and NaN points mixed in, with launch times (warm,
    and with a cold L2: a 128 MiB buffer written before each launch): the
@@ -27,7 +28,11 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    also against one torch.bmm of its dense element matrices
    (`mass.l2_mass_matrices`), timed beside the kernel, and in 3D the
    runtime-size kernel forced at the same sizes, held to the twin and timed
-   beside the compiled instances;
+   beside the compiled instances; the lattice mass kernel (the velocity
+   CG's operator on the lattice path) against its plain twin (the banded
+   tensordot chain), f64 and f32, bit for bit across two launches, on the
+   flagship lattice's tables and weights (65^3 nodes, 128^3 q-points),
+   timed beside the twin and its runtime-size body forced at that size;
 4. the reference's --checks goldens (3D and 2D Sedov) through the port's
    driver on the card, on the whole-lattice and on the gather path, and 3D
    Sedov through the Ozaki lattice path (at its gate, 3e-13);
@@ -36,8 +41,11 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    iterations, energy drift and peak memory; the gather path at the same
    size through `driver.run` for fewer steps, whose |e| must agree with
    the lattice run's; the ns4 shape (Q4-Q3, rs3) on the lattice path;
-   short f32 runs of both paths; then the Ozaki mode (--ozaki) on the
-   same shapes: flagship Jacobi and kron, ns4, and the gather path, each
+   short f32 runs of both paths, and the lattice mass kernel held and
+   timed as in phase 3 on the ns4 run's lattice, and against one SpMM of
+   its mass assembled on the card (the library call); then the Ozaki mode
+   (--ozaki) on the same shapes: flagship Jacobi and kron, ns4, and the
+   gather path, each
    gated on drift and on |e| against the native lattice Jacobi run of this
    call.  The packed layout is on no time-stepping path (its `launches` is
    0 and its entry `on_path` false): its entry point is held, outside the
@@ -54,7 +62,8 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    the gather path under -pa in the same call, with the CSR's size, build
    time and memory, and its product (one CSR SpMV per component) checked
    for bitwise repeatability beside the single SpMM with the (ndof, 3)
-   block, which is timed and checked too;
+   block, which is timed and checked too (and timed in f32: the lattice
+   mass kernel's library yardstick);
 9. checkpoint and restore: 3D Sedov rs3, 5 steps with --checkpoint, then
    --restore and 5 more, bit for bit the uninterrupted 10 steps;
 10. the I/O flags on a small card run: -visit -print -k (VTU, PVD, NPZ
@@ -135,8 +144,10 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
    Q8_F32_E_TOL of f64), 3D Taylor-Green at rs3, each with setup seconds,
    step_ms and its phase split, L2 iterations a solve and peak memory;
    the mass kernel (L2 (NE, 512), H1 (3, NE, 729), f64 and f32, the
-   runtime-size kernel timed beside it) and the lattice- and element-layout q-point kernels at those shapes against
-   their plain twins; at rs2 Taylor-Green on the lattice path twice (bitwise)
+   runtime-size kernel timed beside it), the lattice mass kernel (129^3
+   nodes, 256^3 q-points, f64 and f32) and the lattice-, element- and
+   packed-layout q-point kernels at those shapes against their plain
+   twins; at rs2 Taylor-Green on the lattice path twice (bitwise)
    against the gather path (|e| at 1e-11, drift <= 1e-12) and Sedov with
    kron against the gather path (|e| within Q8_SEDOV_E_TOL); at rs0 the
    card against the CPU (Taylor-Green at 1e-11, Sedov at Q8_SEDOV_E_TOL:
@@ -167,18 +178,29 @@ Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for their type (for the q-point kernel, the longer of the
 algorithm's operations and the FP64-pipe instructions counted in the built
-library, at half the FP64 peak); `cold_ms` is its time with a cold L2, the
-one its share of the bound is read against; `library_ms` is null for the
-q-point and split kernels, as no single PyTorch call computes them, and
-for the mass kernel one torch.bmm of dense element mass matrices by u (at
-Q8-Q7 on seeded matrices of that shape).  The q-point kernel's entries
-carry the same numbers at phase 18's Q8-Q7 shapes under "q8", the split
-kernel's at phase 19's (the six stages of one Ozaki mass apply), the mass
-kernel's at phase 18's; its top-level numbers are the flagship's energy
-CG apply, "h1" the gather path's velocity apply.  Its launches are those
-of every main-path run of its dtype (none in the Ozaki mode, -fa, AMR or
-simplex runs, whose mass applies are other products, as in the JAX
-package).
+library, at half the FP64 peak; for the lattice mass kernel the least
+operations of the function, those of the banded sum factorization, not
+of the kernel's element route: `lattice_mass_ops`); `cold_ms` is its time
+with a cold L2, the one its share of the bound is read against;
+`library_ms` is null for the q-point and split kernels, as no single
+PyTorch call computes them, and for the mass kernel one torch.bmm of
+dense element mass matrices by u (at Q8-Q7 on seeded matrices of that
+shape), for the lattice mass kernel one SpMM of the assembled H1 mass by
+the (ndof, 3) block: phase 8's CSR at the flagship size, one assembled on
+the card at ns4 (`assembled_h1_csr`, 57.1M nonzeros), null at Q8-Q7
+(its CSR would hold 2.10e9 nonzeros, 25 GB in f64 with int32 columns,
+and its build on the card 2.18e9 entries with int64 indices before
+coalescing: more than the card holds).  The q-point kernel's
+entries carry the same numbers at phase 18's Q8-Q7 shapes under "q8",
+the split kernel's at phase 19's (the six stages of one Ozaki mass
+apply), the mass kernel's and the lattice mass kernel's at phase 18's
+(the lattice mass kernel's also at phase 5's ns4 lattice under "ns4");
+the mass kernel's top-level numbers are the flagship's energy CG apply,
+"h1" the gather path's velocity apply.  The mass kernel's launches are
+those of every main-path run of its dtype (none in the Ozaki mode, -fa,
+AMR or simplex runs, whose mass applies are other products, as in the
+JAX package); the lattice mass kernel's those of every lattice-path run,
+counted as f32 in the Ozaki mode (the IR solve's f32 inner sweeps).
 
 Every phase raises on failure.  The last two lines are a JSON record of the
 kernels and the JSON status line; neither is printed unless every phase
@@ -187,6 +209,7 @@ passed.  Exits non-zero without CUDA.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -253,6 +276,9 @@ MASS_Q8 = ("Li3ELi8ELi16E", "Li3ELi9ELi16E")
 # and stores, the FMAs of the contractions, barriers, cp.async copies and
 # the uniform constant loads of the table operands
 MASS_SASS_OPS = ("LDS", "STS", "DFMA", "FFMA", "BAR", "LDGSTS", "ULDC")
+LATTICE_MASS_SOURCE = "laghos_tpu_torch/csrc/lattice_mass.cu"
+# the JAX package's lattice H1 mass apply, which XLA runs (no Pallas kernel)
+LATTICE_MASS_REPLACES = "laghos_tpu/ops/lattice.py:65"
 F64, F32 = torch.float64, torch.float32
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 rates outside
 # the tensor cores
@@ -355,7 +381,8 @@ def phase_build(b):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
-        if "mass_kernel" in cur and not any(q in cur for q in MASS_Q8):
+        if (("mass_kernel" in cur or "lattice_mass" in cur)
+                and not any(q in cur for q in MASS_Q8)):
             k = mass.setdefault(cur, [0, 0])
             m = re.search(r"Used (\d+) registers", line)
             k[0] = int(m.group(1)) if m else k[0]
@@ -366,11 +393,13 @@ def phase_build(b):
             log(f"[2 build] ptxas: {line.strip()}")
     if mass:
         regs = [r for r, _ in mass.values()]
-        log(f"[2 build] ptxas: {len(mass)} other mass kernel instances: "
+        log(f"[2 build] ptxas: {len(mass)} other mass and lattice mass "
+            f"kernel instances: "
             f"{min(regs)}-{max(regs)} registers; spill stores in "
             f"{[k for k, (_, sp) in mass.items() if sp]}")
     mix = kernels.sass_instructions(b.path, MASS_SASS_OPS, per_opcode=True)
-    for name in sorted(k for k in mix if "mass_kernelI" in k
+    for name in sorted(k for k in mix
+                       if ("mass_kernelI" in k or "lattice_mass_stagesI" in k)
                        and any(q in k for q in MASS_Q8)):
         n = mix[name]
         log(f"[2 build] SASS {name}: "
@@ -407,31 +436,38 @@ def _wrapper(layout):
 
 
 def reset_counts():
-    from laghos_tpu_torch.ops import mass, omm
+    from laghos_tpu_torch.ops import lattice, mass, omm
 
     for layout in LAYOUTS:
         _wrapper(layout).launches = 0
     omm.split_dyn.launches = 0
     mass.mass_apply_e.launches = 0
+    lattice.mass_apply_lattice.launches = 0
 
 
 def read_counts():
     """The launch counts since the last reset."""
-    from laghos_tpu_torch.ops import mass, omm
+    from laghos_tpu_torch.ops import lattice, mass, omm
 
     out = {layout: _wrapper(layout).launches for layout in LAYOUTS}
     out["split"] = omm.split_dyn.launches
     out["mass"] = mass.mass_apply_e.launches
+    out["lattice_mass"] = lattice.mass_apply_lattice.launches
     return out
 
 
 def tally(launches, counts, layout, dtype=F64):
     """Adds the counts of a main-path run in `dtype` to the ledger
     `launches`: the `layout` q-point kernel's at (layout, dtype), the split
-    kernel's at "split", the mass kernel's at ("mass", dtype)."""
+    kernel's at "split", the mass kernel's at ("mass", dtype), the lattice
+    mass kernel's at ("lattice_mass", dtype), or at ("lattice_mass", F32)
+    in the Ozaki mode (the runs that split), where only the f32 inner
+    sweeps of the IR velocity solve launch it."""
+    lat_dt = F32 if counts["split"] else dtype
     for key, n in (((layout, dtype), counts[layout]),
                    ("split", counts["split"]),
-                   (("mass", dtype), counts["mass"])):
+                   (("mass", dtype), counts["mass"]),
+                   (("lattice_mass", lat_dt), counts["lattice_mass"])):
         launches[key] = launches.get(key, 0) + n
 
 
@@ -885,6 +921,157 @@ def mass_checks(h, tag, dense, dims=(3,), seed=0):
     return out
 
 
+def lattice_mass_ops(lat, qlat, nd1, C):
+    """The least operations of the lattice mass apply of C components from
+    the lattice `lat` (nodes an axis) to the q-lattice `qlat` (q-points an
+    axis), whatever the route: the banded sum factorization y = T' D T u
+    contracts one axis at a time, nd1 multiply-adds (two operations) for
+    each q-point of each contraction (T has nd1 nonzeros a column), in the
+    axis order with the fewest, forward and transposed (the same sizes),
+    then one multiply by D a q-point; it needs no assembly.  (The element
+    route of csrc/lattice_mass.cu does more: mass_ops on every element,
+    which contracts the shared nodes once for each element, and the adds
+    that assemble them.)"""
+    def contracted(order):
+        shape, n = list(lat), 0
+        for k in order:
+            shape[k] = qlat[k]
+            n += math.prod(shape)
+        return n
+
+    least = min(contracted(o)
+                for o in itertools.permutations(range(len(lat))))
+    return C * (2 * 2 * nd1 * least + math.prod(qlat))
+
+
+def assembled_h1_csr(h):
+    """The scalar H1 mass of the lattice Hydro `h` assembled on the card: its
+    dense element matrices (ops/assemble.h1_mass_element_matrices) summed
+    over its raster gather map into a (ndof, ndof) CSR matrix, coalesced
+    by torch on the card.  The lattice mass kernel's library operand at
+    ns4 (phase 8's CSR, built on the host, is the flagship's)."""
+    from laghos_tpu_torch.ops import assemble as aop
+
+    M = aop.h1_mass_element_matrices(h.massD, h.tables["H1B"], h.dim)
+    g = torch.as_tensor(h.h1.gather, dtype=torch.long, device=h.device)
+    nd = g.shape[1]
+    idx = torch.stack([g[:, :, None].expand(-1, -1, nd).reshape(-1),
+                       g[:, None, :].expand(-1, nd, -1).reshape(-1)])
+    A = torch.sparse_coo_tensor(idx, M.reshape(-1), (h.ndof, h.ndof),
+                                check_invariants=False)
+    del M, idx
+    return A.coalesce().to_sparse_csr()
+
+
+def lattice_mass_check(u, Ts, Dq, lat, what, tag, library_ms=None,
+                       csr=None):
+    """The lattice mass kernel (ops/lattice.mass_apply_lattice on CUDA
+    tensors) against its plain twin (the banded tensordot chain) on the
+    same operands: max|kernel - twin| within MASS_TOL of max|twin|, and two
+    launches bit for bit; then the runtime-size body forced at this size,
+    held to the twin too.  Times (median of 20, warm and with a cold L2) of
+    the kernel (2 device launches: the element stages, the assembly), the
+    twin and the runtime-size body.  The library call: one SpMM of the
+    assembled scalar mass `csr` (ndof, ndof) by the (ndof, C) block, held
+    to the twin at MASS_TOL and timed here, or, without `csr`,
+    `library_ms` (timed elsewhere, or None).  Logged; returns the
+    kernels-line numbers."""
+    from laghos_tpu_torch.ops import kernels, lattice
+    from laghos_tpu_torch.timing import device_ms
+
+    dt = u.dtype
+    C = u.shape[0]
+    y = lattice.mass_apply_lattice(u, Ts, Dq, lat)
+    y2 = lattice.mass_apply_lattice(u, Ts, Dq, lat)
+    p = lattice.mass_apply_lattice_plain(u, Ts, Dq, lat)
+    torch.cuda.synchronize()
+    err, scale = float((y - p).abs().max()), float(p.abs().max())
+    tol = MASS_TOL[dt]
+    same = torch.equal(y, y2)
+    tab = lattice.lattice_table(Ts)
+    name = f"{what} {str(dt)[6:]}"
+    log(f"[{tag}] {name} (lattice {tuple(lat)}, elements {tab.elems}, nd1 "
+        f"{tab.nd1}, nq1 {tab.nq1}, C {C}): max|kernel - twin| {err:.3e} = "
+        f"{err / scale:.3e} x max|twin| (tol {tol:g}); two launches bitwise "
+        f"equal {same}")
+    if not (err <= tol * scale and same):
+        raise AssertionError(f"{name}: lattice mass kernel disagrees with "
+                             "its twin or itself")
+    yr = torch.empty_like(y)
+    ye = torch.empty((C, math.prod(tab.elems), tab.nd1 ** len(lat)),
+                     dtype=dt, device=u.device)
+
+    def launch_rt():
+        kernels.launch_lattice_mass(u, Dq, tab.B, tab.host, ye, yr, C=C,
+                                    elems=tab.elems, nd1=tab.nd1,
+                                    nq1=tab.nq1, rt=True)
+
+    launch_rt()
+    torch.cuda.synchronize()
+    rt_err = float((yr - p).abs().max())
+    if not rt_err <= tol * scale:
+        raise AssertionError(f"{name}: the runtime-size lattice mass body "
+                             "disagrees with its twin")
+    if csr is not None:
+        lib_err = float(((csr @ u.T).T - p).abs().max()) / scale
+        log(f"[{tag}] {name}: SpMM of the assembled mass ({csr._nnz()} "
+            f"nonzeros) {lib_err:.3e} x max|twin|")
+        if not lib_err <= tol:
+            raise AssertionError(f"{name}: the assembled mass disagrees "
+                                 "with the twin")
+        library_ms = device_ms(lambda: (csr @ u.T).T)
+    ms = device_ms(lambda: lattice.mass_apply_lattice(u, Ts, Dq, lat))
+    cold_ms = device_ms(lambda: lattice.mass_apply_lattice(u, Ts, Dq, lat),
+                        cold=True)
+    plain_ms = device_ms(
+        lambda: lattice.mass_apply_lattice_plain(u, Ts, Dq, lat))
+    plain_cold_ms = device_ms(
+        lambda: lattice.mass_apply_lattice_plain(u, Ts, Dq, lat), cold=True)
+    rt_ms = device_ms(launch_rt)
+    rt_cold_ms = device_ms(launch_rt, cold=True)
+    del ye, yr
+    nbytes = _nbytes((u, Dq, y))
+    nops = lattice_mass_ops(lat, tuple(Dq.shape), tab.nd1, C)
+    b_ms, b_by = bound(nbytes, nops, dt, peak=MASS_PEAK_FLOPS[dt])
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} ms cold L2 "
+        f"(2 device launches), plain {plain_ms:.4f} / {plain_cold_ms:.4f} "
+        f"ms, the runtime-size body {rt_ms:.4f} / {rt_cold_ms:.4f} ms "
+        f"(max|rt - twin| {rt_err / scale:.3e} x max|twin|), library "
+        + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+        + f"; bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {nops} operations), "
+        f"{100 * b_ms / cold_ms:.1f} % of it cold")
+    return dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+                plain_cold_ms=plain_cold_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, rt_ms=rt_ms, rt_cold_ms=rt_cold_ms)
+
+
+def lattice_mass_checks(h, tag, seed=0, csr=False):
+    """lattice_mass_check in f64 and f32 of the velocity CG's operator of
+    the lattice Hydro `h` (its banded tables and q-lattice weights, f32
+    copies for f32) on a seeded (dim, ndof) field; with `csr`, against
+    its assembled mass (`assembled_h1_csr`, the values' f32 copy for f32)
+    as the library call.  Returns {dtype: numbers}."""
+    rng = np.random.default_rng(seed)
+    lat = h._lat_dims
+    u = rng.standard_normal((h.dim, math.prod(lat)))
+    A = assembled_h1_csr(h) if csr else None
+    out = {}
+    for dt in (F64, F32):
+        Ts = tuple(T.to(dt) for T in h._lat["Ts"])
+        Dq = h._lat["Dq"].to(dt)
+        A_dt = A
+        if A is not None and dt != A.dtype:
+            A_dt = torch.sparse_csr_tensor(
+                A.crow_indices(), A.col_indices(), A.values().to(dt), A.shape)
+        out[dt] = lattice_mass_check(
+            torch.tensor(u, dtype=dt, device=h.device), Ts, Dq, lat,
+            f"{h.dim}D H1 lattice", tag, csr=A_dt)
+        del A_dt
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel(dev):
     out = {}
     h = flagship_hydro(dev, **GATHER)
@@ -906,6 +1093,8 @@ def phase_kernel(dev):
     for dt in (F64, F32):
         out["packed", dt] = compare("packed", pk, dt)
     del pk
+    for dt, got in lattice_mass_checks(h, "3 lattice mass").items():
+        out["lattice_mass", dt] = got
     out["split"] = phase_split(h)
     del h
     torch.cuda.empty_cache()
@@ -981,17 +1170,24 @@ def _only(counts, layout, calls, what, ozaki=False, pa=True):
     per q-update and no other layout; the split kernel iff Ozaki; the mass
     kernel iff partial assembly outside the Ozaki mode (whose mass applies
     are Ozaki products; -fa's are the CSR and the inverted element
-    matrices)."""
-    got = {k: v for k, v in counts.items() if k not in ("split", "mass")}
+    matrices); the lattice mass kernel iff the lattice path (its velocity
+    CG's operator, in the Ozaki mode the IR solve's f32 inner sweeps)."""
+    got = {k: v for k, v in counts.items()
+           if k not in ("split", "mass", "lattice_mass")}
     want = {k: (calls if k == layout else 0) for k in got}
     split_ok = counts["split"] > 0 if ozaki else counts["split"] == 0
     mass = pa and not ozaki
     mass_ok = counts["mass"] > 0 if mass else counts["mass"] == 0
-    if got != want or calls == 0 or not split_ok or not mass_ok:
+    lat = layout == "lattice"
+    lat_ok = (counts["lattice_mass"] > 0 if lat
+              else counts["lattice_mass"] == 0)
+    if (got != want or calls == 0 or not split_ok or not mass_ok
+            or not lat_ok):
         raise AssertionError(f"{what}: kernel launches {counts}, expected "
                              f"{want}, split launches "
-                             f"{'> 0' if ozaki else '0'} and mass launches "
-                             f"{'> 0' if mass else '0'}")
+                             f"{'> 0' if ozaki else '0'}, mass launches "
+                             f"{'> 0' if mass else '0'} and lattice mass "
+                             f"launches {'> 0' if lat else '0'}")
 
 
 def _ir_line(h):
@@ -1182,6 +1378,8 @@ def phase_flagship(dev):
     run_4, counts = flagship_run(NS4, "ns4")
     tally(launches, counts, "lattice")
     res_4 = run_4.result
+    timed_ns4 = lattice_mass_checks(run_4.hydro, "5 lattice mass ns4",
+                                    csr=True)
     del run_4
 
     run32, counts, wall32, _ = drive(FLAGSHIP_F32)
@@ -1217,7 +1415,7 @@ def phase_flagship(dev):
     gather_report(h, res, setup, counts, res_j, "ozaki gather")
     del h, res
     torch.cuda.empty_cache()
-    return launches
+    return launches, timed_ns4
 
 
 # ------------------------------------------------------------ phase 6 --
@@ -1325,7 +1523,10 @@ def csr_check(h):
     """The FA mass product on the flagship CSR: csr_apply (one SpMV per
     component, the port's) against one SpMM with the (ndof, 3) block,
     each applied 50 times to the final velocity: bitwise repeatability and
-    device times."""
+    device times.  Returns {dtype: the SpMM's ms}, the same in f32 on the
+    CSR's f32 copy: one PyTorch call applying the assembled H1 mass to
+    three components, the lattice mass kernel's library yardstick at the
+    flagship size."""
     from laghos_tpu_torch.ops import assemble as aop
     from laghos_tpu_torch.timing import device_ms
 
@@ -1344,17 +1545,25 @@ def csr_check(h):
     log(f"[8 fa] spmm vs spmv x3: rel {diff:.3e}")
     if out["spmv x3"][0] != 50:
         raise AssertionError("the FA mass product does not repeat")
+    A32 = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                  A.values().float(), A.shape)
+    u32 = u.float()
+    ms32 = device_ms(lambda: (A32 @ u32.T).T)
+    log(f"[8 fa] CSR product spmm in f32 (the values' f32 copy): "
+        f"{ms32:.4f} ms")
+    return {F64: out["spmm"][1], F32: ms32}
 
 
 def phase_fa(dev):
     """The flagship under -fa against the gather path under -pa (21 steps
     each, the same call): |e| within 1e-10, energy drift <= 1e-12, the
-    element-layout f64 kernel launched once per q-update."""
+    element-layout f64 kernel launched once per q-update.  Returns (the -fa
+    result, its element kernel launches, csr_check's SpMM ms by dtype)."""
     run, counts = fa_run(FLAGSHIP_FA, "fa")
     res = run.result
     if res.steps != FLAGSHIP_STEPS:
         raise AssertionError(f"fa: {res.steps} steps")
-    csr_check(run.hydro)
+    library = csr_check(run.hydro)
     del run
     h, ref, setup, cg = gather_run(dev, F64, FLAGSHIP_STEPS, 1e-11)
     step_ms = 1e3 * ref.timings["total"] / ref.steps
@@ -1372,7 +1581,7 @@ def phase_fa(dev):
         raise AssertionError("fa: |e| departs from the -pa gather run")
     del h, ref
     torch.cuda.empty_cache()
-    return res, counts["element"] + cg["element"]
+    return res, counts["element"] + cg["element"], library
 
 
 def phase_checkpoint():
@@ -2275,7 +2484,8 @@ def phase_distributed(dev, ref, gather_ref, oz_ref, ckpt_ref, digests):
                                  "kernel; the ranks run the path")
         for r_, rk in enumerate(run.ranks):
             c_ = rk["launches"]
-            if not (c_["lattice"] > 0 and c_["mass"] > 0 and c_["element"]
+            if not (c_["lattice"] > 0 and c_["mass"] > 0
+                    and c_["lattice_mass"] > 0 and c_["element"]
                     == c_["packed"] == c_["split"] == 0):
                 raise AssertionError(f"16 (b) rank {r_}: launches {c_}")
             tally(launches, c_, "lattice")
@@ -2751,9 +2961,10 @@ def phase_high_order(dev):
     """Q8-Q7 on the card: (a) 3D Sedov at rs3 (NE 4,096, 16.8M q-points)
     through the CLI on the lattice path with Jacobi in f64, with peak
     memory, setup seconds, step_ms and its phase split and the L2
-    iterations a solve; (b) the lattice- and element-layout kernels,
-    f64 and f32, at its q8 shapes against their plain twins (the
-    element data are its q-lattice data per zone: NE 4,096 x NQ 4,096);
+    iterations a solve; (b) the mass kernel, the lattice mass kernel and
+    the lattice-, element- and packed-layout q-point kernels, f64 and f32,
+    at its q8 shapes against their plain twins (the element and packed
+    data are its q-lattice data per zone: NE 4,096 x NQ 4,096);
     (c) the JAX row's own form (f32, -cgt 2e-7) at rs3, |e| within
     Q8_F32_E_TOL of (a)'s at every step; (d) 3D Taylor-Green at rs3,
     drift <= 1e-12; at rs2 (NE 512, NQ 4,096 as at rs3): (e)
@@ -2795,6 +3006,8 @@ def phase_high_order(dev):
     timed = {}
     for dt, got in mass_checks(h, "18 mass q8", False, seed=18).items():
         timed["mass", dt] = got
+    for dt, got in lattice_mass_checks(h, "18 lattice mass q8", 18).items():
+        timed["lattice_mass", dt] = got
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lat = lattice_inputs(h, seed=18)
@@ -2802,11 +3015,17 @@ def phase_high_order(dev):
         timed["lattice", dt] = compare("lattice", lat, dt,
                                        tag="18 kernel q8", h1order=8.0)
     el = eq_inputs(h, lat[0], "element")
+    pk = eq_inputs(h, lat[0], "packed")
     del lat
     for dt in (F64, F32):
         timed["element", dt] = compare("element", el, dt,
                                        tag="18 kernel q8", h1order=8.0)
-    del el, run, h
+    del el
+    # the packed layout (on no time-stepping path) at the same points
+    for dt in (F64, F32):
+        timed["packed", dt] = compare("packed", pk, dt, tag="18 kernel q8",
+                                      h1order=8.0)
+    del pk, run, h
     torch.cuda.empty_cache()
     log(f"{p} (b) peak device memory of the kernel checks (inputs, kernel "
         f"and plain twin at 16,777,216 points): "
@@ -3171,14 +3390,16 @@ def main():
     mark("3 kernel")
     phase_goldens(dev)
     mark("4 goldens")
-    launches = phase_flagship(dev)
+    launches, timed_ns4 = phase_flagship(dev)
     mark("5 flagship")
     phase_golden_rows()
     mark("7 golden rows")
     # the -fa runs launch the element kernel alone (fa_run's _only holds
     # their split and mass counts at 0)
-    fa_res, n_fa = phase_fa(dev)
+    fa_res, n_fa, library = phase_fa(dev)
     launches[("element", F64)] += n_fa
+    for dt, ms in library.items():
+        timed["lattice_mass", dt]["library_ms"] = ms
     mark("8 fa")
     more, ckpt_ref = phase_checkpoint()
     merge(launches, more)
@@ -3240,6 +3461,13 @@ def main():
                      route="cuda", source=MASS_SOURCE, replaces=MASS_REPLACES,
                      launches=launches.get(("mass", dt), 0), on_path=True,
                      **timed["mass", dt], q8=timed_q8["mass", dt])
+                for dt in (F64, F32)]
+    kernels += [dict(name=f"lattice_mass_{str(dt)[6:].replace('loat', '')}",
+                     route="cuda", source=LATTICE_MASS_SOURCE,
+                     replaces=LATTICE_MASS_REPLACES,
+                     launches=launches.get(("lattice_mass", dt), 0),
+                     on_path=True, **timed["lattice_mass", dt],
+                     ns4=timed_ns4[dt], q8=timed_q8["lattice_mass", dt])
                 for dt in (F64, F32)]
     idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
     if idle:

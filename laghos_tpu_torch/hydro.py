@@ -515,7 +515,7 @@ class Hydro:
                         h1b.B, h1b.G, l2bd, tuple(reversed(self._sm.dims)),
                         n_slices=opt.ozaki_slices, device=self.device)
                     self._lat32 = {
-                        "Ts": tuple(T.float() for T in built["Ts"]),
+                        "Ts": lop.cast_tables(built["Ts"], torch.float32),
                         "Dq": built["Dq"].float()}
                     if "kron" in built:
                         self._lat32["kron"] = tuple(

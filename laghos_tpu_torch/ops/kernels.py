@@ -8,8 +8,10 @@ the machine with the card, into `laghos_tpu_torch/build/` (listed in
 builds once and later processes reuse the library.
 
 Kernels: `csrc/qphys.cu` (the q-point physics, `launch_qphys`),
-`csrc/split.cu` (the Ozaki split, `launch_split`) and `csrc/mass.cu` (the
-element PA mass apply, `launch_mass`).
+`csrc/split.cu` (the Ozaki split, `launch_split`), `csrc/mass.cu` (the
+element PA mass apply, `launch_mass`) and `csrc/lattice_mass.cu` (the
+lattice H1 PA mass apply, `launch_lattice_mass`); the last two share the
+device code of `csrc/mass_core.cuh`.
 
 Nothing is built or loaded while the package is imported: the CPU tests
 import every module, and a kernel is built only when a wrapper is first
@@ -87,7 +89,7 @@ def build() -> Build:
 def _build() -> Build:
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(sources + list(SRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     key = digest.hexdigest()[:16]
@@ -191,6 +193,11 @@ def library():
     lib.mass_smem_limit.restype = ctypes.c_int64
     lib.mass_grid.argtypes = [ctypes.c_int] * 5
     lib.mass_grid.restype = ctypes.c_int64
+    lib.lattice_mass_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, p]
+    lib.lattice_mass_launch.restype = ctypes.c_int
     lib.qphys_error_string.argtypes = [ctypes.c_int]
     lib.qphys_error_string.restype = ctypes.c_char_p
     return lib, b
@@ -267,6 +274,22 @@ def host_table(B):
     return host
 
 
+def _mass_error(err, code, dev, dim, nd1, nq1, dtype, what):
+    """Raises for a refused launch of a mass kernel, naming the
+    shared-memory limit when the size needs more than a block may have."""
+    lib, _ = library()
+    if err == MASS_TOO_LARGE:
+        need = lib.mass_smem_bytes(code, int(dim), int(nd1), int(nq1))
+        limit = lib.mass_smem_limit(dev)
+        raise RuntimeError(
+            f"{what}: (nd1, nq1) = ({nd1}, {nq1}) in {dim}D {dtype} "
+            f"needs {need} bytes of shared memory a block, above the card's "
+            f"limit of {limit} bytes (232,448 on an H100)")
+    if err != 0:
+        msg = lib.qphys_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
 def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
     """Launch csrc/mass.cu on PyTorch's current stream: out = B^T (D * (B u))
     per element and component, u and out (C, NE, nd1^dim), D (NE,
@@ -287,16 +310,34 @@ def launch_mass(u, D, B, out, *, C, NE, dim, nd1, nq1, rt=False):
     err = lib.mass_launch(code, dev, u.data_ptr(), D.data_ptr(), B.data_ptr(),
                           table.data_ptr(), out.data_ptr(), int(C), int(NE),
                           int(dim), int(nd1), int(nq1), int(rt), stream)
-    if err == MASS_TOO_LARGE:
-        need = lib.mass_smem_bytes(code, int(dim), int(nd1), int(nq1))
-        limit = lib.mass_smem_limit(dev)
-        raise RuntimeError(
-            f"mass kernel: (nd1, nq1) = ({nd1}, {nq1}) in {dim}D {u.dtype} "
-            f"needs {need} bytes of shared memory a block, above the card's "
-            f"limit of {limit} bytes (232,448 on an H100)")
-    if err != 0:
-        msg = lib.qphys_error_string(err).decode()
-        raise RuntimeError(f"mass kernel launch failed: {msg} ({err})")
+    _mass_error(err, code, dev, dim, nd1, nq1, u.dtype, "mass kernel")
+
+
+def launch_lattice_mass(u, Dq, B, table, ye, y, *, C, elems, nd1, nq1,
+                        rt=False):
+    """Launch csrc/lattice_mass.cu on PyTorch's current stream: y[c] =
+    Tz' Ty' Tx' (Dq * Tx Ty Tz u[c]) on the raster lattice of `elems`
+    (n_z, n_y, n_x) elements (fewer in 2D and 1D) of the table B (nq1,
+    nd1): u and y (C, prod L) with L = n (nd1 - 1) + 1, Dq the q-lattice,
+    ye the E-vector scratch (C, prod n, nd1^dim), contiguous CUDA tensors
+    of one dtype (f32 or f64) checked and allocated by the caller
+    (ops/lattice.mass_apply_lattice); `table` B's values on the host (the
+    compiled instances take it as a kernel parameter).  `rt` runs the
+    runtime-size body even where a compiled instance exists.  Raises on a
+    refused launch."""
+    import torch
+
+    lib, _ = library()
+    code = {torch.float32: 0, torch.float64: 1}[u.dtype]
+    dev = u.device.index
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    dim = len(elems)
+    nx, ny, nz = (tuple(reversed(elems)) + (1, 1))[:3]
+    err = lib.lattice_mass_launch(
+        code, dev, u.data_ptr(), Dq.data_ptr(), B.data_ptr(),
+        table.data_ptr(), ye.data_ptr(), y.data_ptr(), int(C), dim,
+        int(nd1), int(nq1), int(nx), int(ny), int(nz), int(rt), stream)
+    _mass_error(err, code, dev, dim, nd1, nq1, u.dtype, "lattice mass kernel")
 
 
 def mass_grid(dtype, device, *, dim, nd1, nq1):

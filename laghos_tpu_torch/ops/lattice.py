@@ -11,10 +11,13 @@ columns, and T^T performs the assembly across elements.  A PA mass apply is
     y = Tz' Ty' Tx' ( D  *  Tx Ty Tz u )        (6 contractions + 1 mul)
 
 with no gather, no scatter and no atomics.  The q-update gradients and the
-force pair run the same way on the dense q-lattice (Qz, Qy, Qx).  The
-contractions stay `torch.tensordot`/`einsum`, as the JAX package leaves
-them to XLA; the pointwise physics runs as the lattice-layout CUDA kernel
-(`ops/qphys.physics_3d_lattice`).  Reference counterpart: the
+force pair run the same way on the dense q-lattice (Qz, Qy, Qx).  On the
+card the mass apply runs as the CUDA kernel `csrc/lattice_mass.cu`
+(`mass_apply_lattice`; its plain twin, the chain above, serves CPU
+tensors), and the pointwise physics as the lattice-layout CUDA kernel
+(`ops/qphys.physics_3d_lattice`); the gradient and force contractions stay
+`torch.tensordot`/`einsum`, as the JAX package leaves them to XLA.
+Reference counterpart: the
 MassPAOperator and ForcePAOperator apply chains
 (laghos_assembly.cpp:145-514).
 
@@ -25,10 +28,14 @@ axis 2); stress data sJ[gd*3+vd] as in ops/qphys.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import weakref
+
 import numpy as np
 import torch
 
-from . import qphys, tensor
+from . import kernels, qphys, tensor
 
 
 def banded_eval_table(B1d: np.ndarray, n: int) -> np.ndarray:
@@ -77,7 +84,66 @@ def mass_apply_lattice(uL, Ts, Dq, lat_dims):
     uL: (C, ndof) raster-numbered L-vector; Ts: per-axis banded tables
     ordered (z, y, x); Dq: the dense q-lattice weights (rho0 detJ0 w);
     lat_dims: (Lz, Ly, Lx).  Returns (C, ndof).
-    """
+
+    The operands are contiguous tensors of one dtype (f32 or f64) on one
+    device, of shapes that fit (ValueError otherwise).  A CUDA tensor goes
+    to the kernel `csrc/lattice_mass.cu` (counted in
+    `mass_apply_lattice.launches`), which needs tables of the banded form
+    of `banded_eval_table` (`lattice_table`); a CPU tensor to
+    `mass_apply_lattice_plain`."""
+    _check(uL, Ts, Dq, lat_dims)
+    if uL.device.type == "cpu":
+        return mass_apply_lattice_plain(uL, Ts, Dq, lat_dims)
+    if uL.device.type != "cuda":
+        raise NotImplementedError(f"no lattice mass kernel for {uL.device}")
+    tab = lattice_table(Ts)
+    C = uL.shape[0]
+    y = torch.empty_like(uL)
+    ye = torch.empty((C, math.prod(tab.elems), tab.nd1 ** len(lat_dims)),
+                     dtype=uL.dtype, device=uL.device)
+    kernels.launch_lattice_mass(uL, Dq, tab.B, tab.host, ye, y, C=C,
+                                elems=tab.elems, nd1=tab.nd1, nq1=tab.nq1)
+    mass_apply_lattice.launches += 1
+    return y
+
+
+mass_apply_lattice.launches = 0
+
+
+def _check(uL, Ts, Dq, lat_dims):
+    """Raises ValueError on operands of the lattice mass apply that are not
+    contiguous tensors of one dtype (f32 or f64) on one device, or whose
+    shapes do not fit: uL (C, prod lat_dims), Ts[k] (lat_dims[k],
+    Dq.shape[k]) for each of the 1-3 axes."""
+    d = len(lat_dims)
+    if d not in (1, 2, 3) or len(Ts) != d:
+        raise ValueError(f"lattice mass apply: {len(Ts)} tables for "
+                         f"lat_dims {tuple(lat_dims)} (1-3 axes)")
+    ts = (uL, Dq, *Ts)
+    if (uL.dtype not in (torch.float32, torch.float64)
+            or any(t.dtype != uL.dtype for t in ts)):
+        raise ValueError(f"lattice mass apply takes float32 or float64 "
+                         f"operands of one dtype, got u {uL.dtype}, Dq "
+                         f"{Dq.dtype}, Ts {[T.dtype for T in Ts]}")
+    if any(t.device != uL.device for t in ts):
+        raise ValueError(f"lattice mass apply devices differ: u "
+                         f"{uL.device}, Dq {Dq.device}, Ts "
+                         f"{[T.device for T in Ts]}")
+    if (uL.dim() != 2 or uL.shape[1] != math.prod(lat_dims)
+            or Dq.dim() != d
+            or any(tuple(T.shape) != (lat_dims[k], Dq.shape[k])
+                   for k, T in enumerate(Ts))):
+        raise ValueError(f"lattice mass apply shapes do not fit: u "
+                         f"{tuple(uL.shape)}, Ts "
+                         f"{[tuple(T.shape) for T in Ts]}, Dq "
+                         f"{tuple(Dq.shape)}, lat_dims {tuple(lat_dims)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("lattice mass apply takes contiguous operands")
+
+
+def mass_apply_lattice_plain(uL, Ts, Dq, lat_dims):
+    """The plain torch version of `mass_apply_lattice` (its kernel's twin):
+    the chain of 2 d banded tensordots around the D product."""
     C = uL.shape[0]
     d = len(lat_dims)
     q = uL.reshape((C,) + tuple(lat_dims))
@@ -87,6 +153,89 @@ def mass_apply_lattice(uL, Ts, Dq, lat_dims):
     for k in range(d):
         q = _contract(q, Ts[k], 1 + k, 1)
     return q.reshape(C, -1)
+
+
+def banded_factors(tables):
+    """(elements an axis, B (nq1, nd1)) with tables[k] ==
+    banded_eval_table(B, elements[k]) for every axis k, one B for all, at
+    the smallest element order that fits; ValueError if none does.
+
+    tables: NumPy (L_k, Q_k) arrays.  The order is not in the tables'
+    shapes (L = n p + 1 and Q = n nq1 fit several (n, p, nq1)), so each
+    order p whose sizes divide is tried on the values; a coarser fit (two
+    elements taken as one of twice the order) gives the same operator."""
+    L0 = tables[0].shape[0]
+    for p in range(1, L0):
+        if any((T.shape[0] - 1) % p for T in tables):
+            continue
+        ns = tuple((T.shape[0] - 1) // p for T in tables)
+        nq = {T.shape[1] // n for T, n in zip(tables, ns)
+              if T.shape[1] % n == 0}
+        if len(nq) != 1 or any(T.shape[1] % n for T, n in zip(tables, ns)):
+            continue
+        nq1 = nq.pop()
+        B = tables[0][:p + 1, :nq1].T
+        if all(np.array_equal(banded_eval_table(B, n), T)
+               for T, n in zip(tables, ns)):
+            return ns, np.ascontiguousarray(B)
+    raise ValueError(f"the lattice mass kernel takes banded tables "
+                     f"(banded_eval_table); shapes "
+                     f"{[T.shape for T in tables]} have no such form")
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeTable:
+    """What the kernel needs of a set of banded tables: the elements an
+    axis (z, y, x), the 1D table B (nq1, nd1) on the tables' device and on
+    the host (the compiled instances take it as a kernel parameter)."""
+
+    elems: tuple
+    nd1: int
+    nq1: int
+    B: torch.Tensor
+    host: torch.Tensor
+
+
+# ids of the tables -> (weak references, versions, LatticeTable)
+_TABLES = {}
+
+
+def _keep(Ts, elems, B):
+    """Records and returns the LatticeTable of Ts, the banded tables of the
+    1D table B (NumPy (nq1, nd1)) on `elems` elements an axis (z, y, x),
+    kept while these tensor objects live at their current versions."""
+    Bh = torch.from_numpy(np.ascontiguousarray(B)).to(Ts[0].dtype)
+    tab = LatticeTable(tuple(elems), B.shape[1], B.shape[0],
+                       Bh.to(Ts[0].device), Bh)
+    if not any(T.is_inference() for T in Ts):
+        key = tuple(id(T) for T in Ts)
+        refs = tuple(weakref.ref(T, lambda _, k=key: _TABLES.pop(k, None))
+                     for T in Ts)
+        _TABLES[key] = (refs, tuple(T._version for T in Ts), tab)
+    return tab
+
+
+def lattice_table(Ts):
+    """The LatticeTable of the banded tables Ts: the one recorded where
+    they were made (`build_lattice_ops`, `cast_tables`), else found from
+    their values (`banded_factors` on `kernels.host_table` copies: one
+    sync a table) and recorded."""
+    hit = _TABLES.get(tuple(id(T) for T in Ts))
+    if (hit is not None and all(r() is T for r, T in zip(hit[0], Ts))
+            and hit[1] == tuple(T._version for T in Ts)):
+        return hit[2]
+    host = [kernels.host_table(T) for T in Ts]
+    elems, B = banded_factors([h.numpy() for h in host])
+    return _keep(Ts, elems, B)
+
+
+def cast_tables(Ts, dtype):
+    """Copies of the banded tables Ts in `dtype`, with their LatticeTable
+    recorded from that of Ts."""
+    tab = lattice_table(Ts)
+    out = tuple(T.to(dtype) for T in Ts)
+    _keep(out, tab.elems, tab.host.numpy())
+    return out
 
 
 def grad9_lattice(u3, TB, TG):
@@ -419,6 +568,7 @@ def build_lattice_ops(h, dev):
         f"J0i{d * d}": torch.stack([
             ql(h.Jac0inv[..., a, b]) for a in range(d) for b in range(d)]),
     }
+    _keep(out["Ts"], n_zyx, B)
     if h.opt.precond in ("auto", "kron"):
         kb = build_kron_precond(np.asarray(h.ess_mask, bool), lat_dims, Dq,
                                 Ts_np)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 from .. import driver
 from ..hydro import Hydro, Options
-from ..ops import mass, omm, qphys
+from ..ops import lattice, mass, omm, qphys
 from .sharding import rank_view
 
 
@@ -59,7 +59,8 @@ def launches() -> dict:
             "lattice": qphys.physics_3d_lattice.launches,
             "packed": qphys.physics_3d_packed.launches,
             "split": omm.split_dyn.launches,
-            "mass": mass.mass_apply_e.launches}
+            "mass": mass.mass_apply_e.launches,
+            "lattice_mass": lattice.mass_apply_lattice.launches}
 
 
 def run_view(comm, spec) -> dict:

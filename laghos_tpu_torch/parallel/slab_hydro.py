@@ -31,6 +31,7 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import torch
 
 from ..hydro import dense_oz
 from ..ops import lattice as lop
@@ -143,8 +144,9 @@ class SlabHydro(RankView):
             self._lat_oz = lzo.build_lattice_oz(
                 self._np("H1B"), self._np("H1G"), l2bd, self.grid_loc,
                 n_slices=self.opt.ozaki_slices, device=self.device)
-            self._lat32 = {"Ts": tuple(T.float() for T in built["Ts"]),
-                           "Dq": built["Dq"].float()}
+            self._lat32 = {
+                "Ts": lop.cast_tables(built["Ts"], torch.float32),
+                "Dq": built["Dq"].float()}
 
     def _dev_cast(self, t):
         return self._dev(t.to(self.dtype))

@@ -41,8 +41,11 @@ CASES = {
 
 
 # device-side names of the hand-written kernels (csrc/split.cu, csrc/qphys.cu,
-# csrc/mass.cu: mass_kernel and mass_kernel_rt)
-HAND_KERNELS = ("split_kernel", "qphys_kernel", "mass_kernel")
+# csrc/mass.cu: mass_kernel and mass_kernel_rt; csrc/lattice_mass.cu: its
+# element stages, lattice_mass_stages and lattice_mass_stages_rt, and its
+# assembly, two launches an apply); no name is a part of another
+HAND_KERNELS = ("split_kernel", "qphys_kernel", "mass_kernel",
+                "lattice_mass_stages", "lattice_mass_assemble")
 
 
 def hand_kernel_times(events, steps):

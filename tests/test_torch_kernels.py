@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (element, q-lattice and packed layouts of
 csrc/qphys.cu, f64 and f32; the Ozaki split of csrc/split.cu; the element
-PA mass apply of csrc/mass.cu, f64 and f32) against their plain PyTorch
-versions, on the card; the Ozaki int8 products of
+PA mass apply of csrc/mass.cu and the lattice H1 mass apply of
+csrc/lattice_mass.cu, f64 and f32) against their plain PyTorch versions,
+on the card; the Ozaki int8 products of
 ops/omm.py and the full-assembly mass product of ops/assemble.py on the
 card against the same products on the CPU.  This file imports neither JAX
 nor `laghos_tpu`, so it also runs on a machine without them:
@@ -711,3 +712,135 @@ def test_mass_kernel_on_hydro_tables_matches_dense():
         assert float((y - dense).abs().max()) <= 1e-13 * float(
             dense.abs().max()), name
         assert torch.equal(tmass.mass_apply_e(u, h.massD, B, 3), y), name
+
+
+# the lattice mass kernel (csrc/lattice_mass.cu): H1 orders of its compiled
+# instances, on one element, on ragged non-cubic grids (2D 7 x 3, 3D 5 x 3
+# x 2), on a grid of several element groups a persistent block (Q2-Q1 at
+# 24 x 20 x 20) and the q8 grid (Q8-Q7 at 16^3); orders of the runtime-size
+# body (5, 7) and 1D
+LAT_COMPILED = (1, 2, 3, 4, 6, 8)
+LAT_CASES = ([(o, (1,) * d) for d in (2, 3) for o in LAT_COMPILED]
+             + [(o, dims) for dims in ((7, 3), (5, 3, 2))
+                for o in LAT_COMPILED]
+             + [(2, (24, 20, 20)), (8, (16, 16, 16)), (5, (3, 2, 2)),
+                (7, (2, 3)), (2, (6,)), (8, (4,))])
+
+
+def _lattice_operands(order, dims, C, dtype, dev, seed=0):
+    """Seeded u (C, prod L), the banded tables (z, y, x) of the H1 table of
+    `order`, positive q-lattice weights and the lattice dims, on `dev`, for
+    the raster lattice of element dims (n_x, n_y[, n_z])."""
+    from laghos_tpu_torch.fem import basis, quadrature
+
+    nq1 = quadrature.points_for_order(
+        quadrature.default_rule_order(order, order - 1))
+    B = np.asarray(basis.h1_gl_basis(order, nq1).B)
+    n_zyx = tuple(reversed(dims))
+    lat = tuple(n * order + 1 for n in n_zyx)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (t(rng.standard_normal((C, int(np.prod(lat))))),
+            [t(tlat.banded_eval_table(B, n)) for n in n_zyx],
+            t(rng.uniform(0.5, 1.5, tuple(n * nq1 for n in n_zyx))), lat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("C", ["dim", 1])
+@pytest.mark.parametrize("order,dims", LAT_CASES,
+                         ids=[f"p{o}-{'x'.join(map(str, d))}"
+                              for o, d in LAT_CASES])
+def test_lattice_mass_kernel_matches_plain(order, dims, C, dtype, tol):
+    """The lattice kernel against its plain twin (the banded tensordot
+    chain), relative to max|twin|, counted once a call; a second launch
+    gives the same bits."""
+    dev = _card()
+    C = len(dims) if C == "dim" else C
+    u, Ts, Dq, lat = _lattice_operands(order, dims, C, dtype, dev)
+    before = tlat.mass_apply_lattice.launches
+    y = tlat.mass_apply_lattice(u, Ts, Dq, lat)
+    torch.cuda.synchronize()
+    assert tlat.mass_apply_lattice.launches == before + 1
+    p = tlat.mass_apply_lattice_plain(u, Ts, Dq, lat)
+    assert y.dtype == dtype and y.shape == u.shape
+    err = float((y - p).abs().max())
+    assert err <= tol * float(p.abs().max()), err
+    assert torch.equal(tlat.mass_apply_lattice(u, Ts, Dq, lat), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("order,dims", [(2, (5, 3, 2)), (8, (2, 2, 3)),
+                                        (4, (7, 3))])
+def test_lattice_mass_runtime_body_at_compiled_sizes(order, dims, dtype, tol):
+    """The runtime-size body forced at compiled sizes (as chip_smoke.py
+    times the two) against the twin, uncounted by the wrapper."""
+    from laghos_tpu_torch.ops import kernels
+
+    dev = _card()
+    u, Ts, Dq, lat = _lattice_operands(order, dims, len(dims), dtype, dev, 4)
+    tab = tlat.lattice_table(Ts)
+    before = tlat.mass_apply_lattice.launches
+    y = torch.empty_like(u)
+    ye = torch.empty((u.shape[0], int(np.prod(dims)), tab.nd1 ** len(dims)),
+                     dtype=dtype, device=dev)
+    kernels.launch_lattice_mass(u, Dq, tab.B, tab.host, ye, y, C=u.shape[0],
+                                elems=tab.elems, nd1=tab.nd1, nq1=tab.nq1,
+                                rt=True)
+    torch.cuda.synchronize()
+    assert tlat.mass_apply_lattice.launches == before
+    p = tlat.mass_apply_lattice_plain(u, Ts, Dq, lat)
+    assert float((y - p).abs().max()) <= tol * float(p.abs().max())
+
+
+@pytest.mark.cuda
+def test_lattice_mass_kernel_never_falls_back(monkeypatch):
+    """CUDA tensors go to the kernel, never to the twin; another dtype is
+    refused (ValueError) and a size beyond the shared memory a block may
+    have raises, neither counted."""
+    dev = _card()
+    u, Ts, Dq, lat = _lattice_operands(2, (3, 2, 2), 3, torch.float64, dev)
+    ref = tlat.mass_apply_lattice_plain(u, Ts, Dq, lat)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tlat, "mass_apply_lattice_plain", refuse)
+    before = tlat.mass_apply_lattice.launches
+    y = tlat.mass_apply_lattice(u, Ts, Dq, lat)
+    torch.cuda.synchronize()
+    assert tlat.mass_apply_lattice.launches == before + 1
+    assert float((y - ref).abs().max()) <= 1e-13 * float(ref.abs().max())
+    with pytest.raises(ValueError):
+        tlat.mass_apply_lattice(u.half(), [T.half() for T in Ts], Dq.half(),
+                                lat)
+    big = _lattice_operands(13, (1, 1, 1), 1, torch.float64, dev)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tlat.mass_apply_lattice(*big)
+    assert tlat.mass_apply_lattice.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lattice_mass_kernel_on_hydro_matches_cpu(dtype):
+    """The velocity CG's operator of a lattice Hydro (3D Sedov at rs1,
+    Q2-Q1) on the card against the same Hydro's on the CPU (the twin)."""
+    dev = _card()
+    m = tmesh.uniform_refine(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)))
+    hc = Hydro(m, Options(problem=1), dtype=dtype, device="cpu")
+    hd = Hydro(m, Options(problem=1), dtype=dtype, device=dev)
+    assert hc._lat is not None and hd._lat is not None
+    u = torch.tensor(np.random.default_rng(6).standard_normal((3, hc.ndof)),
+                     dtype=dtype)
+    before = tlat.mass_apply_lattice.launches
+    y = hd._h1_apply_bc(u.to(dev)).cpu()
+    assert tlat.mass_apply_lattice.launches == before + 1
+    ref = hc._h1_apply_bc(u)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert float((y - ref).abs().max()) <= tol * float(ref.abs().max())

@@ -77,3 +77,34 @@ def test_hand_kernel_times_from_stub_events():
                                        launches_per_step=0.5)
     assert got["mass_kernel"] == dict(ms_per_step=0.1,
                                       launches_per_step=1.0)
+
+
+def test_hand_kernel_times_tell_the_mass_kernels_apart():
+    """The lattice mass kernel's two device kernels (its element stages,
+    compiled or runtime-size, and its assembly) count under their own
+    names and not under the element mass kernel's."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ev(name, start, end):
+        return SimpleNamespace(name=name, device_type=cuda,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    events = [
+        ev("void (anonymous namespace)::lattice_mass_stages<double, 3, 9, "
+           "16>((anonymous namespace)::LatSrc<double>)", 0.0, 200.0),
+        ev("void (anonymous namespace)::lattice_mass_stages_rt<float>("
+           "(anonymous namespace)::LatSrc<float>)", 200.0, 300.0),
+        ev("void (anonymous namespace)::lattice_mass_assemble<double>("
+           "double const*)", 300.0, 340.0),
+        ev("void (anonymous namespace)::mass_kernel<double, 3, 9, 16>("
+           "double const*)", 400.0, 500.0),
+    ]
+    got = profile_steps.hand_kernel_times(events, steps=1)
+    assert got["lattice_mass_stages"] == dict(ms_per_step=0.3,
+                                              launches_per_step=2.0)
+    assert got["lattice_mass_assemble"] == dict(ms_per_step=0.04,
+                                                launches_per_step=1.0)
+    assert got["mass_kernel"] == dict(ms_per_step=0.1, launches_per_step=1.0)
+    assert not any(a != b and a in b for a in profile_steps.HAND_KERNELS
+                   for b in profile_steps.HAND_KERNELS)
