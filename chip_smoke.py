@@ -402,9 +402,11 @@ def phase_build(b):
                        if ("mass_kernelI" in k or "lattice_mass_stagesI" in k)
                        and any(q in k for q in MASS_Q8)):
         n = mix[name]
+        fma = max(1, n['DFMA'] + n['FFMA'])
         log(f"[2 build] SASS {name}: "
             + ", ".join(f"{op} {n[op]}" for op in MASS_SASS_OPS)
-            + f"; LDS/FMA {n['LDS'] / max(1, n['DFMA'] + n['FFMA']):.3f}")
+            + f"; LDS/FMA {n['LDS'] / fma:.3f}, (ULDC + LDS)/FMA "
+            f"{(n['ULDC'] + n['LDS']) / fma:.3f}")
     sass = kernels.sass_instructions(b.path)
     fp64 = kernels.sass_instructions(b.path, FP64_OPCODES)
     for code, dt in (("d", F64), ("f", F32)):

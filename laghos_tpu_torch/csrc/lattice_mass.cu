@@ -33,11 +33,19 @@
 //
 // What bounds it: the least traffic is u and D read once and y written
 // once (237 MB at Q8-Q7 in f64: 71 us at 3.35 TB/s); the element apply
-// does 1.70 G FMAs there, which csrc/mass.cu's H1 instance issues in ~0.23
-// ms (PERF.md: the issue of FMA and table-operand pairs bounds it), and
-// the E-vector adds 2 x 72 MB of traffic between the two kernels.  A
-// right and simple kernel first: keeping the element outputs on chip (a
-// parity-coloured or cluster-wide assembly) is later work.
+// does 1.70 G FMAs there, about 0.24 ms of stages at Q8-Q7 f64, and the
+// E-vector adds 2 x 72 MB of traffic between the two kernels.  The table
+// is a kernel parameter read inside each output's loop and the C
+// components run one after another, so that instance issues about one
+// ULDC per DFMA.  A redesign was measured on the H100 and lost (PERF.md
+// §6): bricks of elements with all C components in one pass (half the
+// table loads), summed in shared memory with a face buffer between
+// bricks, kept these bits but ran slower.  At Q8-Q7 its shared memory
+// left one block an SM, so copies, assembly and barriers no longer hid
+// under a second block's FMAs, and its stages alone were no faster than
+// these; at Q2-Q4 the on-chip sums cost as much as the stages.  FP64
+// tensor-core stages are the next lever (they reorder the chains: the
+// bits move).
 //
 // The element sizes of the H1 tables of orders 1-4, 6 and 8 ((k + 1, 2k))
 // in 2D and 3D run compiled instances; every other size, and 1D, the

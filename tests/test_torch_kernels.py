@@ -718,13 +718,24 @@ def test_mass_kernel_on_hydro_tables_matches_dense():
 # instances, on one element, on ragged non-cubic grids (2D 7 x 3, 3D 5 x 3
 # x 2), on a grid of several element groups a persistent block (Q2-Q1 at
 # 24 x 20 x 20) and the q8 grid (Q8-Q7 at 16^3); orders of the runtime-size
-# body (5, 7) and 1D
+# body (5, 7) and 1D.  Grids at the seams of a brick-wise design (a tile
+# of the (y, z) cross-section stepped along x; dims (n_x, n_y[, n_z])):
+# one 4 x 4 or 8 x 8 tile (Q2-Q1 1 x 4 x 4, Q1 1 x 8 x 8, 2D Q2-Q1 1 x
+# 16), element counts off such tiles along y and z (Q2-Q1 7 x 6 x 5, Q1 3
+# x 9 x 11, Q3-Q2 3 x 3 x 5, Q4-Q3 2 x 3 x 5, Q8-Q7 5 x 2 x 3, 2D Q4-Q3 3
+# x 9, Q6-Q5 5 x 5, Q8-Q7 4 x 3), a long x walk (Q2-Q1 33 x 4 x 4), and
+# the lattices of rank 1 of 2 slabs (8 x 4 x 2) and of rank 3 of 2 x 2
+# pencils (8 x 2 x 2) of the box at rs1
 LAT_COMPILED = (1, 2, 3, 4, 6, 8)
 LAT_CASES = ([(o, (1,) * d) for d in (2, 3) for o in LAT_COMPILED]
              + [(o, dims) for dims in ((7, 3), (5, 3, 2))
                 for o in LAT_COMPILED]
              + [(2, (24, 20, 20)), (8, (16, 16, 16)), (5, (3, 2, 2)),
-                (7, (2, 3)), (2, (6,)), (8, (4,))])
+                (7, (2, 3)), (2, (6,)), (8, (4,))]
+             + [(2, (1, 4, 4)), (1, (1, 8, 8)), (2, (1, 16)), (2, (7, 6, 5)),
+                (1, (3, 9, 11)), (3, (3, 3, 5)), (4, (2, 3, 5)),
+                (8, (5, 2, 3)), (4, (3, 9)), (6, (5, 5)), (8, (4, 3)),
+                (2, (33, 4, 4)), (2, (8, 4, 2)), (2, (8, 2, 2))])
 
 
 def _lattice_operands(order, dims, C, dtype, dev, seed=0):
@@ -777,7 +788,9 @@ def test_lattice_mass_kernel_matches_plain(order, dims, C, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("order,dims", [(2, (5, 3, 2)), (8, (2, 2, 3)),
-                                        (4, (7, 3))])
+                                        (4, (7, 3)), (2, (1, 4, 4)),
+                                        (2, (7, 6, 5)), (2, (8, 2, 2)),
+                                        (1, (1, 16))])
 def test_lattice_mass_runtime_body_at_compiled_sizes(order, dims, dtype, tol):
     """The runtime-size body forced at compiled sizes (as chip_smoke.py
     times the two) against the twin, uncounted by the wrapper."""
@@ -797,6 +810,42 @@ def test_lattice_mass_runtime_body_at_compiled_sizes(order, dims, dtype, tol):
     assert tlat.mass_apply_lattice.launches == before
     p = tlat.mass_apply_lattice_plain(u, Ts, Dq, lat)
     assert float((y - p).abs().max()) <= tol * float(p.abs().max())
+
+
+# the runtime-size body runs the compiled instances' route (element stages
+# into an E-vector, then the fixed-order assembly) with the same FMA chains
+# and assembly order, so it gives their bits: the witness that a redesign
+# of the compiled instances keeps the f64 bits
+LAT_BITWISE = [(8, (16, 16, 16)), (2, (32, 32, 32)), (4, (16, 16, 16)),
+               (2, (7, 6, 5)), (8, (5, 2, 3)), (2, (8, 2, 2)), (1, (3, 9, 11)),
+               (3, (3, 3, 5)), (6, (2, 3, 3)), (2, (5, 19)), (8, (4, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("C", ["dim", 1])
+@pytest.mark.parametrize("order,dims", LAT_BITWISE,
+                         ids=[f"p{o}-{'x'.join(map(str, d))}"
+                              for o, d in LAT_BITWISE])
+def test_lattice_mass_kernel_keeps_the_runtime_bodys_bits(order, dims, C,
+                                                          dtype):
+    """The compiled instances give the runtime-size body's output bit for
+    bit, in f64 and f32, at the cells' lattices and at ragged ones."""
+    from laghos_tpu_torch.ops import kernels
+
+    dev = _card()
+    C = len(dims) if C == "dim" else C
+    u, Ts, Dq, lat = _lattice_operands(order, dims, C, dtype, dev, 7)
+    tab = tlat.lattice_table(Ts)
+    y = tlat.mass_apply_lattice(u, Ts, Dq, lat)
+    yr = torch.empty_like(u)
+    ye = torch.empty((C, int(np.prod(dims)), tab.nd1 ** len(dims)),
+                     dtype=dtype, device=dev)
+    kernels.launch_lattice_mass(u, Dq, tab.B, tab.host, ye, yr, C=C,
+                                elems=tab.elems, nd1=tab.nd1, nq1=tab.nq1,
+                                rt=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yr)
 
 
 @pytest.mark.cuda
