@@ -33,7 +33,9 @@ given, and rank 0 prints the step lines; the outputs (-visit, -print,
 Where the JAX package turns on `jax_debug_nans`, --debug-nans here checks
 the outputs of every phase of the step for non-finite values and raises
 FloatingPointError naming the phase and the step; --profile writes a
-torch.profiler trace (trace.json) to its directory.
+torch.profiler trace (trace.json) to its directory, with the step's layer
+ranges in it (`timing.trace`), and prints the host's reads of device
+values by layer.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import data, driver
+from . import data, driver, timing
 from .device import setup
 from .fem import mesh as fmesh
 from .fem import simplex_mesh as fsm
@@ -381,17 +383,25 @@ def _on_vis(args, h):
     return on_vis
 
 
+@contextlib.contextmanager
 def _profiler(args, device, name="trace.json"):
+    """With --profile, a torch.profiler trace of the enclosed run written
+    to DIR/name, with the tracer on (`timing.trace`): the trace holds the
+    step's layer ranges, and the yielded tracer counts the host reads.
+    Yields None without --profile."""
     if not args.profile:
-        return contextlib.nullcontext()
+        yield None
+        return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(args.profile, exist_ok=True)
     path = os.path.join(args.profile, name)
-    return torch.profiler.profile(
-        activities=acts,
-        on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=lambda prof: prof.export_chrome_trace(path)), \
+            timing.trace() as tracer:
+        yield tracer
 
 
 def main(argv=None):
@@ -569,7 +579,7 @@ def _main_tensor(args, m, device, t_setup, comm=None):
             if rank0 is not None:
                 rank0(ti, t, G)
     trace = "trace.json" if comm is None else f"trace_rank{comm.rank}.json"
-    with _profiler(args, device, trace):
+    with _profiler(args, device, trace) as tracer:
         res = driver.run(run_h, t_final=args.t_final,
                          max_steps=args.max_steps, vis_steps=args.vis_steps,
                          verbose=True, timing=args.fom,
@@ -593,6 +603,7 @@ def _main_tensor(args, m, device, t_setup, comm=None):
     if args.profile:
         print(f"Profiler trace written to "
               f"{os.path.join(args.profile, trace)}")
+        print(f"Tracer: {tracer.summary()}")
     if args.check:
         run_checks(args.problem, m.dim, res.norms,
                    eps=OZAKI_CHECKS_EPS if args.ozaki else 1e-13)

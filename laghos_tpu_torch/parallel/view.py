@@ -31,6 +31,7 @@ import torch
 
 from .. import checkpoint
 from ..hydro import Hydro
+from ..timing import host_read
 from . import segment
 
 # scalar attributes a view takes over from the global Hydro unchanged
@@ -160,7 +161,7 @@ class RankView(Hydro):
 
     def e_norm(self, S):
         loc = torch.sum(S["e"] * S["e"])
-        return float(torch.sqrt(self.comm.allreduce_sum(loc)))
+        return host_read(torch.sqrt(self.comm.allreduce_sum(loc)))
 
     def save_checkpoint(self, path, S, t, dt, step):
         G = self.to_global(S)

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..timing import host_read
 
 # the longest run of iterations without a flag read under `reads`
 _READ_PERIOD = 16
@@ -168,7 +169,7 @@ def cg(
     it = seen = 1
     while it <= max_iter:
         if reads is None or (it - 1) % _READ_PERIOD == 0 or it >= near:
-            if not bool(state[6].any()):
+            if not host_read(state[6].any()):
                 break
             seen = it
         if replay is None:

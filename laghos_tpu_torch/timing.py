@@ -8,10 +8,15 @@ fences (`block`, the analog of LAGHOS_DEVICE_SYNC), and the FOM rates:
     FOM2 = 1e-6 * steps * (H1 + L2 dofs) / T_force
     FOM3 = 1e-6 * quads * steps / T_qdata
     FOM  = time-weighted mix, FOM0 = 1e-6 * steps * (H1+L2) / (T1+T2+T3)
+
+The stopwatches run in the same hook as the tracer (`trace`): the layer
+spans of a step on torch.profiler's clock, and a count of the host's reads
+of device values by the layer that made them.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import statistics
 import time
@@ -27,11 +32,175 @@ class TimingData:
         self.L2iter = 0
         self.quad_tstep = 0
 
+    def count(self, timer, out, NE):
+        """The FOM counts of one timed phase call: the elements of a
+        q-update, the CG iterations of a solve (`out[1]`).  The iterations
+        add up on the device; `settle` reads them when the run ends, so the
+        timed steps read the device no more often than untimed ones."""
+        if timer == "qdata":
+            self.quad_tstep += NE
+        elif timer == "cgH1":
+            self.H1iter = self.H1iter + out[1]
+        elif timer == "cgL2":
+            self.L2iter = self.L2iter + out[1]
+
+    def settle(self):
+        """Read the iteration totals to the host."""
+        if isinstance(self.H1iter, torch.Tensor):
+            self.H1iter = host_read(self.H1iter)
+        if isinstance(self.L2iter, torch.Tensor):
+            self.L2iter = host_read(self.L2iter)
+
+
+# The tracer of the code running inside `trace`, or None.  Every hook on
+# the main path (`span`, `host_read`, `attempt`, `charge` and the phases of
+# `hydro._phase`) tests it once and, while it is None, does nothing more.
+TRACER = None
+_LAST = None
+_OFF = contextlib.nullcontext()
+
+# the layer of each program span: every other span ("laghos.step",
+# "laghos.dt_read", "laghos.vis"), and host time in none, is the driver's
+LAYER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
+            "laghos.cg_h1": "cg_h1", "laghos.cg_l2": "cg_l2"}
+LAYERS = ("qdata", "force", "cg_h1", "cg_l2", "driver")
+# the TimingData timer a phase's span charges in the driver's timing mode
+_TIMER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
+             "laghos.cg_h1": "cgH1", "laghos.cg_l2": "cgL2"}
+
+
+class Tracer:
+    """What `trace` records: the host reads of device values by the
+    innermost span open when each was made ("" outside every span), one
+    (step, accepted) a `laghos.step` span in the order they ran, and, in
+    the driver's timing mode, the TimingData the phases charge (`tim`).
+
+    torch.profiler keeps no argument of a range (`record_function`'s
+    `args` reach neither its events nor its trace), so whether an attempt
+    was accepted is kept here: the k-th entry of `attempts` is the k-th
+    `laghos.step` range."""
+
+    def __init__(self):
+        self.reads = collections.Counter()
+        self.attempts = []
+        self.tim = None
+        self._open = []
+
     @contextlib.contextmanager
-    def phase(self, name):
-        t0 = time.perf_counter()
-        yield
-        self.t[name] += time.perf_counter() - t0
+    def span(self, name):
+        """A torch.profiler range `name` (the enclosing range on this
+        thread is its parent) that the reads inside are counted against."""
+        self._open.append(name)
+        try:
+            with torch.profiler.record_function(name):
+                yield
+        finally:
+            self._open.pop()
+
+    @contextlib.contextmanager
+    def charging(self, tim):
+        prev, self.tim = self.tim, tim
+        try:
+            yield
+        finally:
+            self.tim = prev
+
+    def phase(self, name, hydro, fn, *args, **kw):
+        """`fn(hydro, *args, **kw)` in the layer span `name`; while
+        charging a TimingData, fenced on both sides, its wall time added to
+        the span's timer and its FOM counts to the TimingData's."""
+        with self.span(name):
+            tim = self.tim
+            if tim is None:
+                return fn(hydro, *args, **kw)
+            _fence(hydro.device)
+            t0 = time.perf_counter()
+            out = fn(hydro, *args, **kw)
+            _fence(hydro.device)
+            timer = _TIMER_OF[name]
+            tim.t[timer] += time.perf_counter() - t0
+            tim.count(timer, out, hydro.NE)
+            return out
+
+    def reads_by_layer(self):
+        """{layer: host reads} over LAYERS."""
+        out = dict.fromkeys(LAYERS, 0)
+        for name, n in self.reads.items():
+            out[LAYER_OF.get(name, "driver")] += n
+        return out
+
+    def accepted(self):
+        return sum(ok for _, ok in self.attempts)
+
+    def summary(self):
+        """One line: the reads by layer and the attempts."""
+        by = self.reads_by_layer()
+        n = self.accepted()
+        return (f"host reads {sum(by.values())}: " + ", ".join(
+            f"{k} {v}" for k, v in by.items()) + f"; attempts "
+            f"{len(self.attempts)} ({n} accepted, "
+            f"{len(self.attempts) - n} rejected)")
+
+
+@contextlib.contextmanager
+def trace():
+    """Turn the tracer on for the enclosed code and yield it (inside
+    another `trace`, the one already on).  While it is on, each layer of
+    the step runs in a torch.profiler range ("laghos.qdata",
+    "laghos.force", "laghos.cg_h1", "laghos.cg_l2"; the driver's
+    "laghos.step" per attempt, "laghos.dt_read", "laghos.vis"), and every
+    read of a device value on the main path (`host_read`) is counted."""
+    global TRACER, _LAST
+    if TRACER is not None:
+        yield TRACER
+        return
+    TRACER = tr = Tracer()
+    try:
+        yield tr
+    finally:
+        TRACER = None
+        _LAST = tr
+
+
+def last_trace():
+    """The tracer of the last `trace` block to end in this process, or
+    None: what a reader of the counters finds after the run."""
+    return _LAST
+
+
+def span(name):
+    """The span `name` while tracing; otherwise a shared no-op context."""
+    tr = TRACER
+    return _OFF if tr is None else tr.span(name)
+
+
+def charge(tim):
+    """While tracing, the phases inside charge the TimingData `tim` (None:
+    nothing)."""
+    tr = TRACER
+    return _OFF if tr is None or tim is None else tr.charging(tim)
+
+
+def host_read(x):
+    """The host reads the device value `x`: a Python number for a 0-d
+    tensor (`item`), else `tolist`; counted against the innermost open
+    span while tracing.  Every read of the main path goes through here."""
+    tr = TRACER
+    if tr is not None:
+        tr.reads[tr._open[-1] if tr._open else ""] += 1
+    return x.tolist() if x.dim() else x.item()
+
+
+def attempt(step, accepted):
+    """Record the outcome of the attempt at `step` while tracing."""
+    tr = TRACER
+    if tr is not None:
+        tr.attempts.append((step, accepted))
+
+
+def _fence(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _cuda_devices(x, out):
