@@ -7,15 +7,18 @@ user calls, at the reference's 3D Sedov benchmark size, and checks them:
 
 1. device: the card, its power limit, and the torch/CUDA/nvcc versions;
 2. build of the hand-written CUDA kernels (csrc/qphys.cu, csrc/split.cu,
-   csrc/mass.cu, csrc/lattice_mass.cu) from this checkout, one nvcc per
-   source in parallel, on the host's cores while phase 15 (which launches
-   none) runs on the card, with ptxas's registers and spills and, for the
-   mass kernel's and the lattice mass kernel's Q8-Q7 instances, their
+   csrc/mass.cu, csrc/lattice_mass.cu, csrc/cg.cu) from this checkout, one
+   nvcc per source in parallel, on the host's cores while phase 15 (which
+   launches none) runs on the card, with ptxas's registers and spills and,
+   for the mass kernel's and the lattice mass kernel's Q8-Q7 instances, their
    static SASS counts of shared-memory loads and stores, FMAs, barriers,
    cp.async copies and uniform constant loads;
 3. each kernel instance against its plain PyTorch version on the card, f64
    and f32, with inverted and NaN points mixed in, with launch times (warm,
    and with a cold L2: a 128 MiB buffer written before each launch): the
+   CG chain (csrc/cg.cu) at the benchmark cells' velocity and energy CG
+   shapes against its plain twins, f64 and f32, bit for bit across two
+   launches, each timed launch from the same active state; the
    element layout on the flagship mesh's gather-path q-data, the q-lattice
    and packed layouts on its q-lattice (2,097,152 points); the Ozaki split
    bit for bit at the six stage operands of an Ozaki mass apply of the
@@ -439,22 +442,28 @@ def _wrapper(layout):
 
 def reset_counts():
     from laghos_tpu_torch.ops import lattice, mass, omm
+    from laghos_tpu_torch.solvers import cg as cgm
 
     for layout in LAYOUTS:
         _wrapper(layout).launches = 0
     omm.split_dyn.launches = 0
     mass.mass_apply_e.launches = 0
     lattice.mass_apply_lattice.launches = 0
+    cgm.chain_step.launches = 0
+    cgm.chain_ess_dot.launches = 0
 
 
 def read_counts():
     """The launch counts since the last reset."""
     from laghos_tpu_torch.ops import lattice, mass, omm
+    from laghos_tpu_torch.solvers import cg as cgm
 
     out = {layout: _wrapper(layout).launches for layout in LAYOUTS}
     out["split"] = omm.split_dyn.launches
     out["mass"] = mass.mass_apply_e.launches
     out["lattice_mass"] = lattice.mass_apply_lattice.launches
+    out["cg_step"] = cgm.chain_step.launches
+    out["cg_ess_dot"] = cgm.chain_ess_dot.launches
     return out
 
 
@@ -464,12 +473,17 @@ def tally(launches, counts, layout, dtype=F64):
     kernel's at "split", the mass kernel's at ("mass", dtype), the lattice
     mass kernel's at ("lattice_mass", dtype), or at ("lattice_mass", F32)
     in the Ozaki mode (the runs that split), where only the f32 inner
-    sweeps of the IR velocity solve launch it."""
+    sweeps of the IR velocity solve launch it; the CG chain's steps and
+    mask-and-dot launches at ("cg_step", dtype) and ("cg_ess_dot", dtype)
+    (the CGs of a run solve in its dtype; the IR solve's f32 inner CG takes
+    the eager iteration)."""
     lat_dt = F32 if counts["split"] else dtype
     for key, n in (((layout, dtype), counts[layout]),
                    ("split", counts["split"]),
                    (("mass", dtype), counts["mass"]),
-                   (("lattice_mass", lat_dt), counts["lattice_mass"])):
+                   (("lattice_mass", lat_dt), counts["lattice_mass"]),
+                   (("cg_step", dtype), counts["cg_step"]),
+                   (("cg_ess_dot", dtype), counts["cg_ess_dot"])):
         launches[key] = launches.get(key, 0) + n
 
 
@@ -1074,8 +1088,159 @@ def lattice_mass_checks(h, tag, seed=0, csr=False):
     return out
 
 
+# the CG shapes of the benchmark cells: the Q2-Q1 velocity solve (3 rows of
+# 2,146,689 = 129^3 H1 dofs, the Jacobi diagonal shared, the essential-dof
+# mask, whose pattern the timing needs: a scattered mask makes the
+# mask-and-dot kernel's stores partial) and the energy solve (one row of
+# 2,097,152 L2 dofs, neither)
+CG_SHAPES = (("velocity", 3, 2146689, True), ("energy", 1, 2097152, False))
+
+
+def cg_chain_bytes(C, n, diag, item=8):
+    """The bytes one iteration of csrc/cg.cu's chain must move, each input
+    read once and each output written once: x, r, d read and written, Ad
+    and the apply's output read, the diagonal (n,) and the bool mask (C,
+    n) read."""
+    return item * C * n * 8 + (item * n + C * n if diag else 0)
+
+
+# the chain's agreement with its twins, as a share of each field's size: in
+# f64 round-off of the dots' order; in f32 about a hundred of its epsilons
+CG_CHAIN_TOL = {F64: 1e-12, F32: 1e-5}
+_CG_FIELDS = ("x", "r", "d", "Ad", "nom", "den", "beta", "active", "iters",
+              "flag")
+
+
+def _lattice_faces(n, dev):
+    """The velocity CG's essential-dof mask of 3D Sedov on an m^3 node
+    lattice (n = m^3, x fastest; `Hydro.ess_mask` on the lattice path):
+    row c true on the two faces normal to axis c (3, n)."""
+    m = round(n ** (1 / 3))
+    if m ** 3 != n:
+        raise ValueError(f"{n} nodes are no cube")
+    i = torch.arange(m, device=dev)
+    edge = (i == 0) | (i == m - 1)
+    return torch.stack([edge[None, None, :].expand(m, m, m),
+                        edge[None, :, None].expand(m, m, m),
+                        edge[:, None, None].expand(m, m, m)]).reshape(3, n)
+
+
+def cg_chain_check(dev, shapes=CG_SHAPES, dtypes=(F64, F32)):
+    """csrc/cg.cu's chain (`solvers/cg.chain_step` and `chain_ess_dot`) at
+    the benchmark cells' CG shapes, f64 and f32, on a seeded state with a
+    positive den and r0 = -1, so no row breaks down or converges and every
+    launch does the whole work: one iteration against the plain twins (x,
+    r, d, Ad, nom, den to CG_CHAIN_TOL of their size, the flags and counts
+    equal), two launches bit for bit, and the times (warm and cold) of the
+    chain and of the twins beside the chain's bound.  Each timed call
+    starts from that state, restored outside its events, and the rows are
+    checked still active after the timing.  Returns {dtype: {shape name:
+    numbers}}."""
+    from laghos_tpu_torch.solvers import cg as cgm
+    from laghos_tpu_torch.timing import device_ms
+
+    out = {}
+    for dt in dtypes:
+        out[dt] = {}
+        for name, C, n, diag in shapes:
+            out[dt][name] = _cg_chain_shape(dev, cgm, device_ms, dt, name,
+                                            C, n, diag)
+    return out
+
+
+def _cg_chain_shape(dev, cgm, device_ms, dt, name, C, n, diag):
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(shape, dtype=dt, device=dev, generator=gen)
+
+    def chain():
+        x, r, d = rnd(C, n), rnd(C, n), rnd(C, n)
+        Ad = d * 2.0
+        nom = torch.sum(r * r, dim=-1)
+        den = torch.sum(d * Ad, dim=-1)
+        r0 = torch.full((C,), -1.0, dtype=dt, device=dev)
+        act = torch.ones(C, dtype=torch.bool, device=dev)
+        iters = torch.full((C,), 300, dtype=torch.int64, device=dev)
+        dinv = rnd(n).abs() + 0.5 if diag else None
+        return cgm._Chain(None, x, r, d, Ad, nom, den, r0, act, iters,
+                          dinv, _lattice_faces(n, dev) if diag else None)
+
+    y0 = rnd(C, n)
+    runs = []
+    for plain in (False, True, False):
+        gen.manual_seed(19)
+        ch = chain()
+        y = y0.clone()
+        if plain:
+            cgm._step_plain(ch, 1)
+            cgm._ess_dot_plain(ch, y)
+        else:
+            cgm.chain_step(ch, 1)
+            cgm.chain_ess_dot(ch, y)
+        torch.cuda.synchronize()
+        runs.append(ch)
+    k, p, k2 = runs
+    err = max(float((getattr(k, f) - getattr(p, f)).abs().max())
+              / float(getattr(p, f).abs().max())
+              for f in ("x", "r", "d", "Ad", "nom", "den"))
+    same = all(torch.equal(getattr(k, f), getattr(k2, f))
+               for f in ("x", "r", "d", "Ad", "nom", "den", "beta"))
+    flags = (torch.equal(k.active, p.active)
+             and torch.equal(k.iters, p.iters)
+             and int(k.flag) == int(p.flag) == 1)
+    tag = f"{name} ({C}, {n}) {str(dt)[6:]}"
+    if err > CG_CHAIN_TOL[dt] or not same or not flags:
+        raise AssertionError(f"cg chain {tag}: {err:.3e} x max|twin|, "
+                             f"bitwise {same}, flags {flags}")
+    del runs, p, k2
+    # the timed state: the seeded one, restored before every call
+    gen.manual_seed(19)
+    ch = chain()
+    y = y0.clone()
+    Ad = ch.Ad
+    start = {f: getattr(ch, f).clone() for f in _CG_FIELDS}
+    if not bool((start["den"] > 0).all()):
+        raise AssertionError(f"cg chain {tag}: the timed state has den <= 0")
+
+    def restore():
+        ch.Ad = Ad
+        for f in _CG_FIELDS:
+            getattr(ch, f).copy_(start[f])
+        y.copy_(y0)
+
+    def run_chain():
+        ch.launch.step(1, ch.Ad)
+        ch.launch.ess_dot(y)
+
+    def run_plain():
+        cgm._step_plain(ch, 1)
+        cgm._ess_dot_plain(ch, y)
+
+    ms = []
+    for fn in (run_chain, run_plain):
+        for cold in (False, True):
+            ms.append(device_ms(fn, cold=cold, before=restore))
+            # the last timed call began at the restored state: every row
+            # did its whole work and is still active
+            if not bool(ch.active.all()):
+                raise AssertionError(f"cg chain {tag}: a row left the "
+                                     f"timed state")
+    item = torch.finfo(dt).bits // 8
+    bound = cg_chain_bytes(C, n, diag, item) / 3.35e12 * 1e3
+    log(f"[3 cg chain] {tag}: {err:.3e} x max|twin|, two launches bitwise "
+        f"equal; chain {ms[0]:.4f} / {ms[1]:.4f} ms warm / cold (5 "
+        f"launches), bound {bound:.4f} ms (bytes), "
+        f"{100 * bound / ms[1]:.1f} %; plain twins {ms[2]:.4f} / "
+        f"{ms[3]:.4f} ms")
+    del ch, y, y0, start
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=bound, err=err)
+
+
 def phase_kernel(dev):
     out = {}
+    out["cg"] = cg_chain_check(dev)
     h = flagship_hydro(dev, **GATHER)
     inp = element_inputs(h)
     for dt in (F64, F32):
@@ -1175,7 +1340,8 @@ def _only(counts, layout, calls, what, ozaki=False, pa=True):
     matrices); the lattice mass kernel iff the lattice path (its velocity
     CG's operator, in the Ozaki mode the IR solve's f32 inner sweeps)."""
     got = {k: v for k, v in counts.items()
-           if k not in ("split", "mass", "lattice_mass")}
+           if k not in ("split", "mass", "lattice_mass", "cg_step",
+                        "cg_ess_dot")}
     want = {k: (calls if k == layout else 0) for k in got}
     split_ok = counts["split"] > 0 if ozaki else counts["split"] == 0
     mass = pa and not ozaki
@@ -3471,6 +3637,16 @@ def main():
                      on_path=True, **timed["lattice_mass", dt],
                      ns4=timed_ns4[dt], q8=timed_q8["lattice_mass", dt])
                 for dt in (F64, F32)]
+    for dt in (F64, F32):
+        steps = launches.get(("cg_step", dt), 0)
+        if launches.get(("cg_ess_dot", dt), 0) != steps:
+            raise AssertionError(f"cg chain {dt}: {steps} steps, "
+                                 f"{launches.get(('cg_ess_dot', dt), 0)} "
+                                 f"mask-and-dot launches")
+        kernels.append(dict(name=f"cg_chain_{str(dt)[6:].replace('loat', '')}",
+                            route="cuda", source="laghos_tpu_torch/csrc/cg.cu",
+                            replaces=None, launches=steps, on_path=True,
+                            **timed["cg"][dt]))
     idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
     if idle:
         raise AssertionError(f"kernels of the path never launched: {idle}")

@@ -58,7 +58,7 @@ from ..ops import mass as mop
 from ..ops import qupdate as qop
 from ..ops import smallmat
 from ..ops import tensor as top
-from ..solvers.cg import cg
+from ..solvers.cg import cg, sum_dot
 
 
 def _lattice(n, d):
@@ -466,10 +466,12 @@ class AMRHydro:
         # an iteration.  Over several ranks it runs eagerly: its one
         # collective, the all-reduce in mass_apply, cannot sit inside a
         # graph; the dots run on vectors equal on every rank, so every rank
-        # stops alike
+        # stops alike.  The dot passed keeps the eager iteration that the
+        # one-card graph replays on every world size (not csrc/cg.cu's
+        # chain, which sums the dots in another order)
         res = cg(apply_flat, rhs.reshape(1, -1), self.opt.cg_tol,
                  self.opt.cg_max_iter, reads=self._cg_reads,
-                 graph=self._one_rank())
+                 graph=self._one_rank(), dot=sum_dot)
         it = torch.sum(res.iters)
         self.h1_iters = self.h1_iters + it
         self.h1_solves += 1

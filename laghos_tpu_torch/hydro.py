@@ -783,27 +783,41 @@ class Hydro:
             rhs = rhs + self.rt_rhs
         return torch.where(self.ess_mask_t, torch.zeros_like(rhs), rhs)
 
-    def _h1_apply_bc(self, u):
+    def _h1_apply(self, u):
+        """The H1 mass apply, the essential dofs not yet zeroed."""
         if self._lat_oz is not None:
-            y = self._halo(lzo.mass_apply_lattice_oz(
+            return self._halo(lzo.mass_apply_lattice_oz(
                 u, self._lat_oz, self._lat["Dq"], self._lat_dims))
-        elif self._lat is not None:
-            y = self._halo(lop.mass_apply_lattice(
+        if self._lat is not None:
+            return self._halo(lop.mass_apply_lattice(
                 u, self._lat["Ts"], self._lat["Dq"], self._lat_dims))
-        else:
-            ue = mop.mass_apply_e(self._l_to_e(u), self.massD,
-                                  self.tables["H1B"], self.dim,
-                                  oz=None if self.oz is None
-                                  else self.oz["h1"])
-            y = self._assemble(ue)
+        ue = mop.mass_apply_e(self._l_to_e(u), self.massD,
+                              self.tables["H1B"], self.dim,
+                              oz=None if self.oz is None else self.oz["h1"])
+        return self._assemble(ue)
+
+    def _h1_apply_bc(self, u):
+        y = self._h1_apply(u)
         return torch.where(self.ess_mask_t, torch.zeros_like(y), y)
 
-    def _precond_velocity(self, r):
+    def _velocity_precond(self):
+        """The velocity CG's preconditioner as (callable, None), or as
+        (None, diagonal) for Jacobi: `cg` takes the diagonal as a tensor,
+        and on the card then runs csrc/cg.cu's chain."""
         if self._lat is not None and "kron" in self._lat:
-            return lop.kron_precond_apply(r, self._lat["kron"],
-                                          self._lat_dims)
+            return self._kron_apply, None
         if self._schwarz is None:
-            return r * self.h1_dinv[None, :]
+            return None, self.h1_dinv
+        return self._schwarz_apply, None
+
+    def _precond_velocity(self, r):
+        M, dinv = self._velocity_precond()
+        return r * dinv[None, :] if M is None else M(r)
+
+    def _kron_apply(self, r):
+        return lop.kron_precond_apply(r, self._lat["kron"], self._lat_dims)
+
+    def _schwarz_apply(self, r):
         # element-block additive Schwarz, symmetric through the
         # 1/sqrt(multiplicity) weights on both sides; assembled by the
         # path's own gather (no atomics)
@@ -915,9 +929,10 @@ class Hydro:
             return self._cg_velocity_fa(rhs)
         if self._lat32 is not None and self.opt.cg_ir:
             return self._cg_velocity_ir(rhs, x0=x0)
-        res = cg(self._h1_apply_bc, rhs, self.opt.cg_tol,
-                 self.opt.cg_max_iter, precond=self._precond_velocity,
-                 x0=x0, reads=self._reads("h1"), dot=self._dot_h1)
+        M, dinv = self._velocity_precond()
+        res = cg(self._h1_apply, rhs, self.opt.cg_tol, self.opt.cg_max_iter,
+                 precond=M, precond_diag=dinv, ess=self.ess_mask_t, x0=x0,
+                 reads=self._reads("h1"), dot=self._cg_dot_h1)
         return res.x, torch.sum(res.iters)
 
     def _cg_velocity_fa(self, rhs):
@@ -945,6 +960,10 @@ class Hydro:
         """An assembled H1 L-vector (C, ndof) with the contributions of
         the other ranks sharing its dofs added."""
         return y
+
+    # the dots the CGs pass to `cg`: None, its one-device sum (on the card
+    # csrc/cg.cu's chain sums it); a rank view sets its collectives
+    _cg_dot_h1 = _cg_dot_l2 = None
 
     def _dot_h1(self, u, v):
         """Per-component dot product of H1 L-vectors: (C, n) -> (C,)."""
@@ -1024,7 +1043,7 @@ class Hydro:
         res = cg(apply_A, e_rhs.reshape(1, -1), self.opt.cg_tol,
                  self.opt.cg_max_iter,
                  x0=None if x0 is None else x0.reshape(1, -1),
-                 reads=self._reads("l2"), dot=self._dot_l2)
+                 reads=self._reads("l2"), dot=self._cg_dot_l2)
         iters = torch.clamp(res.iters[0], min=1)
         return res.x.reshape(self.NE, self.ld), iters
 

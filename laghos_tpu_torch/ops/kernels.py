@@ -9,9 +9,10 @@ builds once and later processes reuse the library.
 
 Kernels: `csrc/qphys.cu` (the q-point physics, `launch_qphys`),
 `csrc/split.cu` (the Ozaki split, `launch_split`), `csrc/mass.cu` (the
-element PA mass apply, `launch_mass`) and `csrc/lattice_mass.cu` (the
-lattice H1 PA mass apply, `launch_lattice_mass`); the last two share the
-device code of `csrc/mass_core.cuh`.
+element PA mass apply, `launch_mass`), `csrc/lattice_mass.cu` (the
+lattice H1 PA mass apply, `launch_lattice_mass`; the last two share the
+device code of `csrc/mass_core.cuh`) and `csrc/cg.cu` (the CG iteration's
+vector algebra, `CGLaunch`).
 
 Nothing is built or loaded while the package is imported: the CPU tests
 import every module, and a kernel is built only when a wrapper is first
@@ -198,6 +199,16 @@ def library():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, p]
     lib.lattice_mass_launch.restype = ctypes.c_int
+    i64 = ctypes.c_int64
+    lib.cg_partials.argtypes = [ctypes.c_int, ctypes.c_int, i64, i64]
+    lib.cg_partials.restype = i64
+    lib.cg_step_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, i64, i64, i64, i64, p, p, p, p, p, i64, p,
+        p, p, p, p, p, p, p, p]
+    lib.cg_step_launch.restype = ctypes.c_int
+    lib.cg_ess_dot_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, i64, i64, i64, p, p, i64, p, p, p, p, p]
+    lib.cg_ess_dot_launch.restype = ctypes.c_int
     lib.qphys_error_string.argtypes = [ctypes.c_int]
     lib.qphys_error_string.restype = ctypes.c_char_p
     return lib, b
@@ -354,3 +365,102 @@ def mass_grid(dtype, device, *, dim, nd1, nq1):
         msg = lib.qphys_error_string(int(-grid)).decode()
         raise RuntimeError(f"mass_grid failed: {msg} ({-grid})")
     return int(grid)
+
+
+def _cg_operand(t, dtype, C, n, what):
+    """(pointer, row stride) of the optional per-entry operand t, (n,)
+    shared by the rows or (C, n), contiguous, of `dtype`; (None, 0) for
+    None."""
+    if t is None:
+        return None, 0
+    if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(f"{what}: a contiguous CUDA {dtype} tensor, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.numel() == n:
+        return t.data_ptr(), 0
+    if t.numel() == C * n and t.dim() == 2:
+        return t.data_ptr(), n
+    raise ValueError(f"{what}: ({n},) or ({C}, {n}), got {tuple(t.shape)}")
+
+
+class CGLaunch:
+    """csrc/cg.cu bound to the tensors of one CG solve of C rows of n
+    entries: x, r, d (C, n) updated in place; nom, den, r0, beta (C,) of
+    their type, active (C,) bool, iters (C,) int64, flag a 0-d int32;
+    dinv (the diagonal preconditioner) and ess (the essential-dof mask,
+    bool) (n,) or (C, n), or None.  Checks them once and allocates the
+    dots' partials; `step(it, Ad)` launches steps 1-3 of iteration `it`
+    (update, finisher, direction), `ess_dot(y)` the mask written into the
+    operator's output y (C, n) and den = (d, y) (y then holds Ad).  On
+    PyTorch's current stream at construction; raises on a refused
+    launch."""
+
+    def __init__(self, x, r, d, nom, den, r0, active, iters, beta, flag,
+                 dinv=None, ess=None):
+        import torch
+
+        dt, dev = x.dtype, x.device
+        if dt not in (torch.float32, torch.float64) or x.dim() != 2:
+            raise ValueError(f"CG chain: (C, n) f32 or f64, got {dt} "
+                             f"{tuple(x.shape)}")
+        C, n = x.shape
+        for t in (x, r, d):
+            if t.shape != x.shape or t.dtype != dt or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError("CG chain: x, r, d contiguous (C, n) of "
+                                 "one type on one card")
+        for t, want in ((nom, dt), (den, dt), (r0, dt), (beta, dt),
+                        (active, torch.bool), (iters, torch.int64)):
+            if t.shape != (C,) or t.dtype != want or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"CG chain: a ({C},) {want} tensor, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if flag.shape != () or flag.dtype != torch.int32 or flag.device != dev:
+            raise ValueError("CG chain: the flag is a 0-d int32 tensor")
+        dp, ds = _cg_operand(dinv, dt, C, n, "CG chain preconditioner")
+        ep, es = _cg_operand(ess, torch.bool, C, n, "CG chain mask")
+        lib, _ = library()
+        code = {torch.float32: 0, torch.float64: 1}[dt]
+        P = lib.cg_partials(code, dev.index, C, n)
+        if P < 0:
+            msg = lib.qphys_error_string(int(-P)).decode()
+            raise RuntimeError(f"cg_partials failed: {msg} ({-P})")
+        # the tensors whose pointers the launches take, kept alive here
+        self._keep = (x, r, d, nom, den, r0, active, iters, beta, flag, dinv,
+                      ess)
+        self.partials = torch.empty((C, P), dtype=dt, device=dev)
+        self.shape, self.dtype, self.device = (C, n), dt, dev
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self._lib = lib
+        self._head = (code, dev.index, C, n, P)
+        self._xrd = (x.data_ptr(), r.data_ptr(), d.data_ptr())
+        self._step_tail = (dp, ds, nom.data_ptr(), den.data_ptr(),
+                           r0.data_ptr(), active.data_ptr(), iters.data_ptr(),
+                           beta.data_ptr(), self.partials.data_ptr(),
+                           flag.data_ptr(), stream)
+        self._dot_tail = (ep, es, d.data_ptr(), den.data_ptr(),
+                          active.data_ptr(), self.partials.data_ptr(), stream)
+
+    def _check(self, t, what):
+        if t.shape != self.shape or t.dtype != self.dtype \
+                or t.device != self.device or not t.is_contiguous():
+            raise ValueError(f"CG chain: {what} must be a contiguous "
+                             f"{self.shape} {self.dtype} tensor on "
+                             f"{self.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+    def step(self, it, Ad):
+        self._check(Ad, "Ad")
+        err = self._lib.cg_step_launch(*self._head, int(it), *self._xrd,
+                                       Ad.data_ptr(), *self._step_tail)
+        if err != 0:
+            msg = self._lib.qphys_error_string(err).decode()
+            raise RuntimeError(f"CG chain launch failed: {msg} ({err})")
+
+    def ess_dot(self, y):
+        self._check(y, "the operator's output")
+        err = self._lib.cg_ess_dot_launch(*self._head, y.data_ptr(),
+                                          *self._dot_tail)
+        if err != 0:
+            msg = self._lib.qphys_error_string(err).decode()
+            raise RuntimeError(f"CG chain launch failed: {msg} ({err})")

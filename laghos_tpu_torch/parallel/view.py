@@ -68,6 +68,8 @@ class RankView(Hydro):
         self.one_l2 = torch.ones((NE, self.ld), dtype=self.dtype,
                                  device=self.device)
         self._owned_by_dtype = {}
+        # the CGs sum their dots across the ranks
+        self._cg_dot_h1, self._cg_dot_l2 = self._dot_h1, self._dot_l2
 
     # ------------------------------------------------------- layout --
     def _layout(self, rank: int):

@@ -43,9 +43,12 @@ CASES = {
 # device-side names of the hand-written kernels (csrc/split.cu, csrc/qphys.cu,
 # csrc/mass.cu: mass_kernel and mass_kernel_rt; csrc/lattice_mass.cu: its
 # element stages, lattice_mass_stages and lattice_mass_stages_rt, and its
-# assembly, two launches an apply); no name is a part of another
+# assembly, two launches an apply; csrc/cg.cu: the CG chain's five kernels,
+# one launch each an iteration); no name is a part of another
 HAND_KERNELS = ("split_kernel", "qphys_kernel", "mass_kernel",
-                "lattice_mass_stages", "lattice_mass_assemble")
+                "lattice_mass_stages", "lattice_mass_assemble",
+                "cg_update_kernel", "cg_finish_kernel", "cg_direction_kernel",
+                "cg_ess_dot_kernel", "cg_den_kernel")
 
 
 def hand_kernel_times(events, steps):

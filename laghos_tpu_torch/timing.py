@@ -10,8 +10,9 @@ fences (`block`, the analog of LAGHOS_DEVICE_SYNC), and the FOM rates:
     FOM  = time-weighted mix, FOM0 = 1e-6 * steps * (H1+L2) / (T1+T2+T3)
 
 The stopwatches run in the same hook as the tracer (`trace`): the layer
-spans of a step on torch.profiler's clock, and a count of the host's reads
-of device values by the layer that made them.
+spans of a step on torch.profiler's clock, a count of the host's reads
+of device values by the layer that made them, and a count of the CG
+iterations by layer and by the path that ran them.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ class TimingData:
 
 
 # The tracer of the code running inside `trace`, or None.  Every hook on
-# the main path (`span`, `host_read`, `attempt`, `charge` and the phases of
-# `hydro._phase`) tests it once and, while it is None, does nothing more.
+# the main path (`span`, `host_read`, `count_cg`, `attempt`, `charge` and
+# the phases of `hydro._phase`) tests it once and, while it is None, does
+# nothing more.
 TRACER = None
 _LAST = None
 _OFF = contextlib.nullcontext()
@@ -71,7 +73,9 @@ _TIMER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
 
 class Tracer:
     """What `trace` records: the host reads of device values by the
-    innermost span open when each was made ("" outside every span), one
+    innermost span open when each was made ("" outside every span), the
+    CG iterations by (innermost span, path: "fused" for csrc/cg.cu's
+    chain, "generic" for the eager iteration) in `cg_iters`, one
     (step, accepted) a `laghos.step` span in the order they ran, and, in
     the driver's timing mode, the TimingData the phases charge (`tim`).
 
@@ -82,6 +86,7 @@ class Tracer:
 
     def __init__(self):
         self.reads = collections.Counter()
+        self.cg_iters = collections.Counter()
         self.attempts = []
         self.tim = None
         self._open = []
@@ -189,6 +194,14 @@ def host_read(x):
     if tr is not None:
         tr.reads[tr._open[-1] if tr._open else ""] += 1
     return x.tolist() if x.dim() else x.item()
+
+
+def count_cg(path, n):
+    """While tracing, count `n` CG iterations run on `path` ("fused" or
+    "generic") against the innermost open span."""
+    tr = TRACER
+    if tr is not None:
+        tr.cg_iters[(tr._open[-1] if tr._open else "", path)] += n
 
 
 def attempt(step, accepted):
@@ -318,20 +331,26 @@ def run_metadata(*, args=None, opt=None, result=None, extra=None,
 _FLUSH = []
 
 
-def device_ms(fn, n=20, cold=False):
+def device_ms(fn, n=20, cold=False, before=None):
     """Median device time in ms of n calls of fn on the card, each between
     two CUDA events.  Before each call the card is kept busy for ~1 ms
     (`torch.cuda._sleep`) while the host queues it, so a call that costs
     the host longer than the card to launch is timed by its device work,
     not its launch.  cold: before each call, outside the events, write a
     128 MiB buffer (2.7x the 50 MB L2), so the call finds its inputs in
-    device memory."""
+    device memory.  before: called before each call (and before the
+    buffer is written), outside the events: to restore the state a call
+    of fn changes."""
     if cold and not _FLUSH:
         _FLUSH.append(torch.empty(2**25, dtype=torch.float32, device="cuda"))
+    if before is not None:
+        before()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
+        if before is not None:
+            before()
         if cold:
             _FLUSH[0].fill_(1.0)
         torch.cuda._sleep(2_000_000)

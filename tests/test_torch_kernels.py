@@ -4,14 +4,17 @@ PA mass apply of csrc/mass.cu and the lattice H1 mass apply of
 csrc/lattice_mass.cu, f64 and f32) against their plain PyTorch versions,
 on the card; the Ozaki int8 products of
 ops/omm.py and the full-assembly mass product of ops/assemble.py on the
-card against the same products on the CPU.  This file imports neither JAX
-nor `laghos_tpu`, so it also runs on a machine without them:
+card against the same products on the CPU; the CG chain of csrc/cg.cu
+against the eager iteration and against the JAX package's solves kept in
+tests/data (`cg_reference`).  This file imports neither JAX nor
+`laghos_tpu`, so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Without a CUDA card every test skips.
 """
 
+import cg_reference
 import numpy as np
 import pytest
 import torch
@@ -539,10 +542,12 @@ def test_graphed_cg_matches_eager():
     """The CG's iterations replayed from a CUDA graph (`cg(graph=True)`,
     the AMR velocity solve) give the eager solve's bits and iteration
     count, on the constrained mass of a graded 3D forest at its
-    300-iteration cap and at a converging tolerance."""
+    300-iteration cap and at a converging tolerance.  The eager solve is
+    the eager iteration's (a dot passed in: without one, a solve without
+    a graph runs csrc/cg.cu's chain)."""
     from laghos_tpu_torch.amr.forest import Forest
     from laghos_tpu_torch.amr.solver import AMRHydro
-    from laghos_tpu_torch.solvers.cg import cg
+    from laghos_tpu_torch.solvers.cg import sum_dot, cg
 
     dev = _card()
     f = Forest(3, (2, 2, 2), (1.0,) * 3, max_depth=2)
@@ -560,9 +565,193 @@ def test_graphed_cg_matches_eager():
 
     for tol, reads in ((1e-8, None), (1e-13, [None]), (1e-13, [40])):
         res = [cg(apply, b, tol, 300, reads=None if reads is None
-                  else list(reads), graph=g) for g in (False, True)]
+                  else list(reads), graph=g, dot=None if g else sum_dot)
+               for g in (False, True)]
         assert torch.equal(res[0].x, res[1].x), tol
         assert torch.equal(res[0].iters, res[1].iters), tol
+
+
+def _cg_hydro(dev, order_v, order_e, rs):
+    """The 3D Sedov Hydro of a benchmark cell's orders at `rs`, Jacobi."""
+    m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
+    for _ in range(rs):
+        m = tmesh.uniform_refine(m)
+    return Hydro(m, Options(problem=1, order_v=order_v, order_e=order_e,
+                            precond="jacobi"), device=dev)
+
+
+def _cg_systems(h, seed=0):
+    """The velocity and energy CG systems of `h` as `Hydro._cg_velocity`
+    and `_cg_energy` pass them to `cg`, on seeded right-hand sides."""
+    rng = np.random.default_rng(seed)
+    vb = torch.tensor(rng.normal(size=(h.dim, h.ndof)), dtype=h.dtype,
+                      device=h.device)
+    vb = torch.where(h.ess_mask_t, torch.zeros_like(vb), vb)
+    eb = torch.tensor(rng.normal(size=(1, h.NE * h.ld)), dtype=h.dtype,
+                      device=h.device)
+
+    def apply_l2(u):
+        ue = tmass.mass_apply_e(u.reshape(h.NE, h.ld), h.massD,
+                                h.tables["L2B"], h.dim)
+        return ue.reshape(1, -1)
+
+    return {"h1": (h._h1_apply, vb, dict(precond_diag=h.h1_dinv,
+                                         ess=h.ess_mask_t)),
+            "l2": (apply_l2, eb, {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rs", [0, 1, 2])
+@pytest.mark.parametrize("orders", [(2, 1), (4, 3)], ids=["q2q1", "q4q3"])
+def test_fused_cg_matches_generic(orders, rs):
+    """The fused chain (csrc/cg.cu) against the eager iteration on both
+    benchmark cells' velocity and energy systems, counts equal or within
+    one (the dots are summed in another order): at CG tolerance 1e-14, x
+    to 1e-12 of its size, a warm start too; at the cells' 1e-11 a row may
+    stop one iteration apart, and that step moves x by about the
+    tolerance (3.4e-12 at Q2-Q1 rs1, where the eager iteration on the CPU
+    and on the card part by 1.1e-12 at rs0), so x to 1e-10 there.  Two
+    fused solves bit for bit; the fused solve with the `reads` schedule
+    bit for bit the one reading the flag every iteration; each solve
+    counted on its path while tracing."""
+    from laghos_tpu_torch import timing
+    from laghos_tpu_torch.solvers import cg as cgm
+
+    h = _cg_hydro(_card(), *orders, rs)
+    for site, (apply, b, kw) in _cg_systems(h).items():
+        for tol, xtol in ((1e-14, 1e-12), (1e-11, 1e-10)):
+            steps = cgm.chain_step.launches
+            with timing.trace() as tr:
+                fused = cgm.cg(apply, b, tol, 300, **kw)
+                # a dot passed in takes the eager iteration (the same sum
+                # as the one-device dot)
+                generic = cgm.cg(apply, b, tol, 300, dot=cgm.sum_dot, **kw)
+            n_f, n_g = int(fused.iters.max()), int(generic.iters.max())
+            assert tr.cg_iters == {("", "fused"): n_f, ("", "generic"): n_g}
+            assert cgm.chain_step.launches - steps == n_f
+            assert bool(fused.converged.all()) and n_f < 300, site
+            assert (fused.iters - generic.iters).abs().max() <= 1, site
+            scale = float(generic.x.abs().max())
+            err = float((fused.x - generic.x).abs().max())
+            assert err <= xtol * scale, (site, tol, err / scale)
+        again = cgm.cg(apply, b, tol, 300, **kw)
+        assert torch.equal(again.x, fused.x), site
+        assert torch.equal(again.iters, fused.iters), site
+        for prev in (None, n_f, n_f + 5, 3):
+            reads = [prev]
+            few = cgm.cg(apply, b, tol, 300, reads=reads, **kw)
+            assert torch.equal(few.x, fused.x), (site, prev)
+            assert torch.equal(few.iters, fused.iters), (site, prev)
+            assert reads[0] <= n_f + 1, (site, prev)
+        x0 = 0.5 * fused.x
+        warm = [cgm.cg(apply, b, 1e-14, 300, x0=x0, dot=dot, **kw)
+                for dot in (None, cgm.sum_dot)]
+        assert torch.equal(x0, 0.5 * fused.x), site
+        err = float((warm[0].x - warm[1].x).abs().max())
+        assert err <= 1e-12 * scale, (site, err / scale)
+        assert (warm[0].iters - warm[1].iters).abs().max() <= 1, site
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orders,rs", cg_reference.CASES,
+                         ids=[f"q{o[0]}q{o[1]}-rs{r}"
+                              for o, r in cg_reference.CASES])
+def test_fused_cg_matches_jax(orders, rs):
+    """Hydro's velocity and energy solves on the card, through the fused
+    chain (csrc/cg.cu), against the JAX package's solves of the same
+    systems (tests/data/cg_jax_reference.npz, which
+    tests/test_torch_ops.py::test_cg_reference_is_jax holds to
+    `laghos_tpu.solvers.cg` on the CPU): at CG tolerance 1e-14 counts
+    within one (the dots are summed in another order), x to 1e-12.  The
+    velocity solve takes the arguments `Hydro._cg_velocity` passes to
+    `cg`, the energy solve is `Hydro._cg_energy` itself; every iteration
+    of both runs on the chain."""
+    from laghos_tpu_torch import timing
+    from laghos_tpu_torch.solvers import cg as cgm
+
+    dev = _card()
+    ref = cg_reference.load()
+    m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
+    for _ in range(rs):
+        m = tmesh.uniform_refine(m)
+    h = Hydro(m, Options(**cg_reference.options(orders)), device=dev)
+    M, dinv = h._velocity_precond()
+    assert M is None and h._cg_dot_h1 is None and h._cg_dot_l2 is None
+    b = torch.tensor(cg_reference.velocity_rhs(h.ess_mask), dtype=h.dtype,
+                     device=dev)
+    e = torch.tensor(cg_reference.rhs((h.NE, h.ld), 0.75), dtype=h.dtype,
+                     device=dev)
+    with timing.trace() as tr:
+        res = cgm.cg(h._h1_apply, b, h.opt.cg_tol, h.opt.cg_max_iter,
+                     precond_diag=dinv, ess=h.ess_mask_t, dot=h._cg_dot_h1)
+        ex, eit = h._cg_energy(e)
+    assert {path for _, path in tr.cg_iters} == {"fused"}, tr.cg_iters
+    assert bool(res.converged.all())
+    for name, x, it in (("v", res.x, res.iters), ("e", ex, eit)):
+        want_x = ref[cg_reference.key(orders, rs, f"{name}_x")]
+        want_it = ref[cg_reference.key(orders, rs, f"{name}_iters")]
+        got_it = it.cpu().numpy()
+        assert np.abs(got_it - want_it).max() <= 1, (name, got_it, want_it)
+        x = x.cpu().numpy()
+        err = np.abs(x - want_x).max() / np.abs(want_x).max()
+        assert err <= 1e-12, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_cg_edges(dtype):
+    """The chain on small systems at ragged sizes (1 row and 5 rows, n
+    from 1 to 3 blocks and a bit), rows converging apart, a row broken
+    down at once (negative definite) and the max_iter cap: the eager
+    iteration's counts (f32: within one), x as close as the dots' order
+    allows, and the caller's b untouched."""
+    from laghos_tpu_torch.solvers import cg as cgm
+
+    dev = _card()
+    # CG tolerance, x agreement, count slack: an f32 dot summed in another
+    # order may move a stop by one iteration
+    cg_tol, tol, slack = {torch.float64: (1e-8, 1e-10, 0),
+                          torch.float32: (1e-4, 1e-3, 1)}[dtype]
+    rng = np.random.default_rng(11)
+    for C, n in ((1, 1), (1, 257), (5, 700), (2, 5000)):
+        eig = np.geomspace(1.0, 50.0, n)
+        diag = torch.tensor(np.stack([rng.permutation(eig) * (1 + c)
+                                      for c in range(C)]), dtype=dtype,
+                            device=dev)
+        if C > 1:
+            diag[1] = -diag[1]           # den < 0 at the first iteration
+        b = torch.tensor(rng.normal(size=(C, n)), dtype=dtype, device=dev)
+        b0 = b.clone()
+        dinv = 1.0 / diag.abs().sqrt()
+
+        def apply(u):
+            return diag * u
+
+        for max_iter in (300, 3):
+            res = [cgm.cg(apply, b, cg_tol, max_iter, precond_diag=dinv,
+                          dot=dot) for dot in (None, cgm.sum_dot)]
+            assert torch.equal(b, b0)
+            assert (res[0].iters - res[1].iters).abs().max() <= slack, (
+                C, n, max_iter)
+            scale = float(res[1].x.abs().max())
+            assert float((res[0].x - res[1].x).abs().max()) <= tol * scale
+            if C > 1:
+                assert int(res[0].iters[1]) == 1
+                assert not bool(res[0].x[1].any())
+
+
+@pytest.mark.cuda
+def test_fused_cg_on_hydro_pa_path():
+    """Every CG iteration of Hydro's PA Jacobi path runs on the fused chain
+    while tracing (`Tracer.cg_iters`), the velocity and the energy solves
+    alike."""
+    from laghos_tpu_torch import driver, timing
+
+    h = _cg_hydro(_card(), 2, 1, 1)
+    driver.run(h, t_final=0.6, max_steps=3, vis_steps=10**6, timing=True)
+    counts = timing.last_trace().cg_iters
+    assert {k for k, n in counts.items() if n} == {
+        ("laghos.cg_h1", "fused"), ("laghos.cg_l2", "fused")}, counts
 
 
 # (nd1, nq1) of csrc/mass.cu's compiled instances (2D and 3D), then sizes of

@@ -2,6 +2,7 @@
 the pointwise physics (plain version of the CUDA kernel), the eigen-solve,
 the q-update, the force pair, the mass operators and CG."""
 
+import cg_reference
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -329,3 +330,42 @@ def test_cg_matches_jax(dim):
     x_j, it_j = jax.jit(hj._cg_energy)(jnp.asarray(e))
     assert int(it_t) == int(it_j)
     assert _rel(x_t.numpy(), x_j) <= 1e-13
+
+
+@pytest.mark.parametrize("orders,rs", cg_reference.CASES,
+                         ids=[f"q{o[0]}q{o[1]}-rs{r}"
+                              for o, r in cg_reference.CASES])
+def test_cg_reference_is_jax(orders, rs):
+    """tests/data/cg_jax_reference.npz, which the card's
+    test_fused_cg_matches_jax holds csrc/cg.cu's chain to, is the JAX
+    package's solution of Hydro's velocity and energy systems (counts
+    equal, x to 1e-13); and the port's own solves on the CPU, with the
+    arguments Hydro's CGs pass to `cg`, meet it: x to 1e-12, counts
+    within one (at CG tolerance 1e-14 the stop sits near round-off, and
+    torch and XLA sum the dots in different orders: a Q4-Q3 rs0 row stops
+    at 16 against 17)."""
+    ref = cg_reference.load()
+    got = cg_reference.solve_jax(orders, rs)
+    for name, a in got.items():
+        want = ref[cg_reference.key(orders, rs, name)]
+        if name.endswith("iters"):
+            np.testing.assert_array_equal(a, want, err_msg=name)
+        else:
+            assert _rel(a, want) <= 1e-13, name
+    m = tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0))
+    for _ in range(rs):
+        m = tmesh.uniform_refine(m)
+    ht = THydro(m, TOptions(**cg_reference.options(orders)), device="cpu")
+    M, dinv = ht._velocity_precond()
+    assert M is None
+    b = _t(cg_reference.velocity_rhs(ht.ess_mask))
+    res = tcg(ht._h1_apply, b, cg_reference.TOL, cg_reference.MAX_ITER,
+              precond_diag=dinv, ess=ht.ess_mask_t, dot=ht._cg_dot_h1)
+    want = ref[cg_reference.key(orders, rs, "v_iters")]
+    assert np.abs(res.iters.numpy() - want).max() <= 1, (res.iters, want)
+    assert _rel(res.x.numpy(), ref[cg_reference.key(orders, rs, "v_x")]) \
+        <= 1e-12
+    x, it = ht._cg_energy(_t(cg_reference.rhs((ht.NE, ht.ld), 0.75)))
+    assert abs(int(it) - int(ref[cg_reference.key(orders, rs, "e_iters")])) \
+        <= 1
+    assert _rel(x.numpy(), ref[cg_reference.key(orders, rs, "e_x")]) <= 1e-12
