@@ -940,11 +940,13 @@ class Hydro:
         unknowns (laghos_solver.cpp:400-439), through the assembled sparse
         mass, so one residual and one iteration count cover every
         component.  It always starts from zero: the JAX package's FA solve
-        takes no warm start either."""
+        takes no warm start either.  While tracing, its sparse products
+        run in the span "laghos.spmv"."""
         d = self.dim
 
         def apply_flat(u):
-            y = aop.csr_apply(self._h1_csr, u.reshape(d, -1))
+            with timing.span("laghos.spmv"):
+                y = aop.csr_apply(self._h1_csr, u.reshape(d, -1))
             return torch.where(self.ess_mask_t, torch.zeros_like(y),
                                y).reshape(1, -1)
 

@@ -12,7 +12,7 @@ fences (`block`, the analog of LAGHOS_DEVICE_SYNC), and the FOM rates:
 The stopwatches run in the same hook as the tracer (`trace`): the layer
 spans of a step on torch.profiler's clock, a count of the host's reads
 of device values by the layer that made them, and a count of the CG
-iterations by layer and by the path that ran them.
+iterations and solves by layer and by the path that ran them.
 """
 
 from __future__ import annotations
@@ -62,9 +62,11 @@ _LAST = None
 _OFF = contextlib.nullcontext()
 
 # the layer of each program span: every other span ("laghos.step",
-# "laghos.dt_read", "laghos.vis"), and host time in none, is the driver's
+# "laghos.dt_read", "laghos.vis"), and host time in none, is the driver's;
+# "laghos.spmv" opens inside "laghos.cg_h1" only
 LAYER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
-            "laghos.cg_h1": "cg_h1", "laghos.cg_l2": "cg_l2"}
+            "laghos.cg_h1": "cg_h1", "laghos.cg_l2": "cg_l2",
+            "laghos.spmv": "cg_h1"}
 LAYERS = ("qdata", "force", "cg_h1", "cg_l2", "driver")
 # the TimingData timer a phase's span charges in the driver's timing mode
 _TIMER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
@@ -74,10 +76,11 @@ _TIMER_OF = {"laghos.qdata": "qdata", "laghos.force": "force",
 class Tracer:
     """What `trace` records: the host reads of device values by the
     innermost span open when each was made ("" outside every span), the
-    CG iterations by (innermost span, path: "fused" for csrc/cg.cu's
-    chain, "generic" for the eager iteration) in `cg_iters`, one
-    (step, accepted) a `laghos.step` span in the order they ran, and, in
-    the driver's timing mode, the TimingData the phases charge (`tim`).
+    CG iterations and solves by (innermost span, path: "fused" for
+    csrc/cg.cu's chain, "generic" for the eager iteration) in `cg_iters`
+    and `cg_solves`, one (step, accepted) a `laghos.step` span in the
+    order they ran, and, in the driver's timing mode, the TimingData the
+    phases charge (`tim`).
 
     torch.profiler keeps no argument of a range (`record_function`'s
     `args` reach neither its events nor its trace), so whether an attempt
@@ -87,6 +90,7 @@ class Tracer:
     def __init__(self):
         self.reads = collections.Counter()
         self.cg_iters = collections.Counter()
+        self.cg_solves = collections.Counter()
         self.attempts = []
         self.tim = None
         self._open = []
@@ -152,7 +156,8 @@ def trace():
     """Turn the tracer on for the enclosed code and yield it (inside
     another `trace`, the one already on).  While it is on, each layer of
     the step runs in a torch.profiler range ("laghos.qdata",
-    "laghos.force", "laghos.cg_h1", "laghos.cg_l2"; the driver's
+    "laghos.force", "laghos.cg_h1", "laghos.cg_l2", and inside
+    "laghos.cg_h1" the full-assembly solve's "laghos.spmv"; the driver's
     "laghos.step" per attempt, "laghos.dt_read", "laghos.vis"), and every
     read of a device value on the main path (`host_read`) is counted."""
     global TRACER, _LAST
@@ -197,11 +202,13 @@ def host_read(x):
 
 
 def count_cg(path, n):
-    """While tracing, count `n` CG iterations run on `path` ("fused" or
-    "generic") against the innermost open span."""
+    """While tracing, count one CG solve of `n` iterations run on `path`
+    ("fused" or "generic") against the innermost open span."""
     tr = TRACER
     if tr is not None:
-        tr.cg_iters[(tr._open[-1] if tr._open else "", path)] += n
+        key = (tr._open[-1] if tr._open else "", path)
+        tr.cg_iters[key] += n
+        tr.cg_solves[key] += 1
 
 
 def attempt(step, accepted):

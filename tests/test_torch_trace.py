@@ -207,3 +207,45 @@ def test_cli_fom_table_and_profile(tmp_path, monkeypatch, capsys):
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert {"laghos.step", "laghos.cg_h1", "laghos.cg_l2"} <= names
+
+
+def test_fa_spmv_range_and_counters():
+    """Under -fa: every sparse product runs in a "laghos.spmv" range
+    nested in a "laghos.cg_h1" one, one before the first iteration of a
+    solve and one an iteration; the tracer counts each coupled velocity
+    solve and its iterations on the eager path; the timed run's timers
+    are the phases alone, which print_timing and the FOM sum; with the
+    tracer off nothing is counted."""
+    h = Hydro(tmesh.cartesian(3, (2, 2, 2), (1.0, 1.0, 1.0)),
+              Options(problem=1, ode_solver=7, cg_tol=1e-11,
+                      p_assembly=False), device="cpu")
+    key = ("laghos.cg_h1", "generic")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timing.trace() as tr:
+            r = driver.run(h, 0.6, max_steps=4, vis_steps=4)
+    ranges = _ranges(prof)
+    spmv = [(s, t) for s, t, n in ranges if n == "laghos.spmv"]
+    cg_h1 = [(s, t) for s, t, n in ranges if n == "laghos.cg_h1"]
+    assert spmv and all(any(a <= s and t <= b for a, b in cg_h1)
+                        for s, t in spmv)
+    assert set(tr.cg_iters) == set(tr.cg_solves) == {key}
+    assert tr.cg_iters[key] == r.h1_iters
+    assert tr.cg_solves[key] == 2 * len(tr.attempts) == len(cg_h1)
+    assert len(spmv) == tr.cg_iters[key] + tr.cg_solves[key]
+    assert tr.reads_by_layer()["cg_h1"] == tr.reads["laghos.cg_h1"] > 0
+
+    timed = driver.run(h, 0.6, max_steps=4, timing=True)
+    tim = timed.timing_data
+    assert set(tim.t) == {"cgH1", "cgL2", "force", "qdata"}
+    got = timing.print_timing(tim, steps=timed.steps, H1_dofs=3 * h.ndof,
+                              L2_dofs=h.NE * h.ld, NQ=h.NQ, NE=h.NE,
+                              p_assembly=False, dim=3, fom_table=False,
+                              out=lambda *a: None)
+    assert got["TT"] == tim.t["cgH1"] + tim.t["force"] + tim.t["qdata"]
+    last = timing.last_trace()
+    assert last.cg_solves[key] == 2 * len(last.attempts)
+
+    counts = (dict(last.cg_iters), dict(last.cg_solves))
+    driver.run(h, 0.6, max_steps=2)
+    assert timing.TRACER is None and timing.last_trace() is last
+    assert counts == (dict(last.cg_iters), dict(last.cg_solves))
